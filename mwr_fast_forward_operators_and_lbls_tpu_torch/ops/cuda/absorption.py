@@ -1,0 +1,180 @@
+"""Absorption kernel K1 (`csrc/absorption.cu`), its wrapper and plain version.
+
+`absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km].  On CPU
+tensors it runs `absorption_lb_reference`, the plain torch `total_absorption`;
+on CUDA tensors it launches the kernel or raises.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ...constants import H2O_MODELS, O2_MODELS, o3_lines
+from ..absorption import total_absorption
+from ..absorption.h2o import _GL_W, _GL_X
+from . import _build
+
+# Scalar slots at the head of the packed table, in the order of the `Header`
+# enum in csrc/absorption.cu.
+HEADER_FIELDS = ("cutoff", "cf", "xcf", "cs", "xcs", "o2_x", "wb300",
+                 "h2o_factor", "nonres", "o2_scale", "mixing_basis_p",
+                 "n2_coef", "n2_exp", "n2_fdep")
+N_HEADER = 16
+H2O_FIELDS = ("fl", "s1", "b2", "w3", "x", "ws", "xs", "w2", "ws2")
+O2_FIELDS = ("f", "s300", "be", "w300", "y0", "y1", "g0", "g1", "dnu0",
+             "dnu1")
+O3_FIELDS = ("O3_FL", "O3_S1", "O3_B2", "O3_W3", "O3_X")
+MAX_CHANNELS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LineTables:
+    """Column offsets of the packed line table read by K1.
+
+    The table is a header of scalars, then one column of `n_<species>`
+    floats per field of H2O_FIELDS, O2_FIELDS and O3_FIELDS, then the 16
+    Gauss-Laguerre nodes and the 16 weights.
+    """
+
+    n_h2o: int
+    n_o2: int
+    n_o3: int
+
+    @property
+    def h2o(self) -> int:
+        return N_HEADER
+
+    @property
+    def o2(self) -> int:
+        return self.h2o + len(H2O_FIELDS) * self.n_h2o
+
+    @property
+    def o3(self) -> int:
+        return self.o2 + len(O2_FIELDS) * self.n_o2
+
+    @property
+    def gl(self) -> int:
+        return self.o3 + len(O3_FIELDS) * self.n_o3
+
+    @property
+    def size(self) -> int:
+        return self.gl + len(_GL_X) + len(_GL_W)
+
+
+def table_layout(model: str, o3: bool) -> LineTables:
+    return LineTables(n_h2o=H2O_MODELS[model].fl.size,
+                      n_o2=O2_MODELS[model].f.size,
+                      n_o3=o3_lines.O3_FL.size if o3 else 0)
+
+
+def pack_tables(model: str, o3: bool) -> np.ndarray:
+    """The packed float64 table of one release (and O3 when asked for)."""
+    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
+    dry98 = model in ("R98", "R03")   # the 1998 dry continuum, n2.py
+    header = dict(
+        cutoff=h2o.cutoff_ghz, cf=h2o.cf, xcf=h2o.xcf, cs=h2o.cs,
+        xcs=h2o.xcs, o2_x=o2.x, wb300=o2.wb300, h2o_factor=o2.h2o_factor,
+        nonres=o2.nonres_coeff, o2_scale=o2.scale,
+        mixing_basis_p=float(o2.mixing_basis == "p"),
+        n2_coef=6.4e-14 if dry98 else 6.5e-14,
+        n2_exp=3.55 if dry98 else 3.6, n2_fdep=0.0 if dry98 else 1.0)
+    head = np.zeros(N_HEADER)
+    head[:len(HEADER_FIELDS)] = [header[k] for k in HEADER_FIELDS]
+    parts = [head]
+    parts += [np.asarray(getattr(h2o, k), np.float64) for k in H2O_FIELDS]
+    parts += [np.asarray(getattr(o2, k), np.float64) for k in O2_FIELDS]
+    if o3:
+        parts += [np.asarray(getattr(o3_lines, k), np.float64)
+                  for k in O3_FIELDS]
+    parts += [_GL_X, _GL_W]
+    table = np.concatenate(parts)
+    assert table.size == table_layout(model, o3).size
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def line_tables(model: str, o3: bool, device) -> torch.Tensor:
+    """The packed table as a float32 tensor on `device` (cached; treat it
+    as read-only)."""
+    return torch.as_tensor(pack_tables(model, o3), dtype=torch.float32,
+                           device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_vector(values: tuple, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def absorption_lb_reference(freqs, p, t, rho, lwc, model: str = "R24",
+                            o3=None):
+    """Plain version of K1: `total_absorption` in the (F, L, B) layout."""
+    f = torch.as_tensor(freqs, dtype=p.dtype, device=p.device)[:, None, None]
+    return total_absorption(f, p[None], t[None], rho[None], lwc[None],
+                            model=model,
+                            o3_ppmv=None if o3 is None else o3[None])
+
+
+def _check_inputs(freqs, arrays: dict, tables, layout: LineTables):
+    ref = arrays["p"]
+    for name, a in arrays.items():
+        if not a.is_cuda or a.dtype != torch.float32:
+            raise TypeError(f"{name}: the absorption kernel takes float32 "
+                            f"CUDA tensors, got {a.dtype} on {a.device}")
+        if a.device != ref.device or a.shape != ref.shape or a.ndim != 2:
+            raise ValueError(f"{name}: expected {tuple(ref.shape)} (L, B) on "
+                             f"{ref.device}, got {tuple(a.shape)} on "
+                             f"{a.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= len(freqs) <= MAX_CHANNELS:
+        raise ValueError(f"the absorption kernel takes 1..{MAX_CHANNELS} "
+                         f"channels, got {len(freqs)}")
+    if not 0 < ref.numel() < 2 ** 31:
+        raise ValueError(f"L*B = {ref.numel()} out of range")
+    if (tables.device != ref.device or tables.dtype != torch.float32
+            or tables.shape != (layout.size,) or not tables.is_contiguous()):
+        raise ValueError(f"tables: expected ({layout.size},) float32 on "
+                         f"{ref.device}, got {tuple(tables.shape)} "
+                         f"{tables.dtype} on {tables.device}")
+
+
+def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
+                  tables=None):
+    """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] and optional O3
+    [ppmv] -> alpha (F, L, B) [Np/km] at the channels `freqs` [GHz].
+
+    CPU tensors take the plain version.  CUDA tensors (float32, contiguous)
+    launch K1; `tables` is the packed `line_tables(model, o3 is not None,
+    device)`, built and cached here when not given.
+    """
+    if p.device.type == "cpu":
+        return absorption_lb_reference(freqs, p, t, rho, lwc, model, o3)
+    with_o3 = o3 is not None
+    layout = table_layout(model, with_o3)
+    if tables is None:
+        tables = line_tables(model, with_o3, p.device)
+    arrays = dict(p=p, t=t, rho=rho, lwc=lwc)
+    if with_o3:
+        arrays["o3"] = o3
+    _check_inputs(freqs, arrays, tables, layout)
+    lev, batch = p.shape
+    f = _device_vector(tuple(float(v) for v in freqs), p.device)
+    out = torch.empty((len(freqs), lev, batch), dtype=torch.float32,
+                      device=p.device)
+    with torch.cuda.device(p.device):
+        err = _build.library().mwr_absorption_lb(
+            p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
+            o3.data_ptr() if with_o3 else None, f.data_ptr(), len(freqs),
+            tables.data_ptr(), layout.size, layout.n_h2o, layout.n_o2,
+            layout.n_o3, layout.h2o, layout.o2, layout.o3, layout.gl,
+            lev * batch, out.data_ptr(),
+            torch.cuda.current_stream(p.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"absorption kernel launch failed: CUDA error {err}")
+    absorption_lb.launches += 1
+    return out
+
+
+absorption_lb.launches = 0

@@ -1,0 +1,20 @@
+"""Argument promotion shared by the elementwise physics ops."""
+
+import functools
+
+import torch
+
+
+def promote(*xs):
+    """Tensors of one floating dtype (float32 at least) on one device.
+
+    Python numbers and numpy arrays become tensors; the device is that of the
+    first argument that is not on the CPU, so 0-d CPU scalars join CUDA
+    profiles.
+    """
+    ts = [torch.as_tensor(x) for x in xs]
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in ts),
+                             torch.float32)
+    device = next((t.device for t in ts if t.device.type != "cpu"),
+                  ts[0].device)
+    return [t.to(device=device, dtype=dtype) for t in ts]

@@ -1,0 +1,152 @@
+"""The port's absorption ops and the module of kernel K1
+(`ops/cuda/absorption.py`), held against the frozen fp64 goldens and the JAX
+package's XLA `total_absorption` on the same inputs."""
+
+import json
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mwr_fast_forward_operators_and_lbls_tpu.constants import afgl
+from mwr_fast_forward_operators_and_lbls_tpu.constants.h2o_lines import (
+    ZENITH_SWEEP_MODELS)
+from mwr_fast_forward_operators_and_lbls_tpu.ops.absorption import (
+    total_absorption as jax_total_absorption)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
+    H2O_MODELS, O2_MODELS, o3_lines)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
+    total_absorption)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+    absorption as k1)
+
+torch.set_num_threads(1)
+
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+FREQS = lbl.LBLConfig().freqs_ghz
+
+
+@pytest.fixture(scope="module")
+def points():
+    """demo_batch(4, 96) levels, flattened, as float32 numpy arrays."""
+    b = lbl.demo_batch(4, 96)
+    z = b["z"].numpy().reshape(-1)
+    o3 = np.interp(z / 1000.0, afgl.CLIMATOLOGIES["midlatitude_summer"]
+                   ["z_km"], afgl.CLIMATOLOGIES["midlatitude_summer"]
+                   ["o3_ppmv"]).astype(np.float32)
+    out = {k: b[k].numpy().reshape(-1) for k in ("p", "t", "rho", "lwc")}
+    out["o3"] = o3
+    return out
+
+
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_frozen_absorption_fp64(model):
+    g = json.loads((GOLDEN / f"absorption_{model}.json").read_text())
+    f = torch.tensor(g["freqs_ghz"], dtype=torch.float64)
+    for (p, t, rho), (key, want) in zip(g["conditions"], g["alpha"].items()):
+        a = total_absorption(f, torch.tensor(p, dtype=torch.float64),
+                             torch.tensor(t, dtype=torch.float64),
+                             torch.tensor(rho, dtype=torch.float64),
+                             model=model)
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-9,
+                                   err_msg=f"{model} @ {key}")
+
+
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_fp32_matches_jax_xla(points, model, with_o3):
+    """fp32 against the XLA reference on the same points: per channel,
+    max |dalpha| <= 1e-4 x max |alpha| (100x fp32 rounding done by two
+    libms)."""
+    o3 = points["o3"] if with_o3 else None
+    want = np.asarray(jax_total_absorption(
+        jnp.asarray(FREQS, jnp.float32)[:, None], points["p"][None],
+        points["t"][None], points["rho"][None], points["lwc"][None],
+        model=model, o3_ppmv=None if o3 is None else o3[None]))
+    got = total_absorption(
+        torch.tensor(FREQS, dtype=torch.float32)[:, None],
+        torch.from_numpy(points["p"])[None],
+        torch.from_numpy(points["t"])[None],
+        torch.from_numpy(points["rho"])[None],
+        torch.from_numpy(points["lwc"])[None], model=model,
+        o3_ppmv=None if o3 is None else torch.from_numpy(o3)[None]).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    err = np.abs(got - want).max(axis=1)
+    scale = np.abs(want).max(axis=1)
+    assert np.all(err <= 1e-4 * scale), (err / scale).max()
+
+
+def test_o3_adds_absorption(points):
+    args = [torch.from_numpy(points[k])[None] for k in ("p", "t", "rho")]
+    f = torch.tensor(FREQS, dtype=torch.float32)[:, None]
+    clear = total_absorption(f, *args, model="R24")
+    with_o3 = total_absorption(f, *args, model="R24",
+                               o3_ppmv=torch.from_numpy(points["o3"])[None])
+    assert bool((with_o3 >= clear).all()) and bool((with_o3 > clear).any())
+
+
+def test_unknown_model_raises():
+    with pytest.raises(ValueError, match="unknown absorption model"):
+        total_absorption(torch.tensor([22.24]), 1000.0, 280.0, 5.0,
+                         model="R99")
+
+
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+def test_reference_layout_equals_total_absorption(with_o3):
+    prof = {k: v.T.contiguous() for k, v in lbl.demo_batch(3, 40).items()}
+    o3 = lbl._afgl_o3(prof["z"]) if with_o3 else None
+    args = [prof[k] for k in ("p", "t", "rho", "lwc")]
+    got = k1.absorption_lb_reference(FREQS, *args, "R20SD", o3=o3)
+    assert got.shape == (len(FREQS), 40, 3)
+    for c, f in enumerate(FREQS):
+        want = total_absorption(torch.tensor(f), *args, model="R20SD",
+                                o3_ppmv=o3)
+        torch.testing.assert_close(got[c], want, rtol=1e-6, atol=0)
+
+
+def test_wrapper_takes_the_plain_version_on_cpu():
+    prof = {k: v.T.contiguous() for k, v in lbl.demo_batch(2, 30).items()}
+    args = [prof[k] for k in ("p", "t", "rho", "lwc")]
+    before = k1.absorption_lb.launches
+    got = k1.absorption_lb(FREQS, *args, "R24")
+    assert k1.absorption_lb.launches == before == 0
+    torch.testing.assert_close(got, k1.absorption_lb_reference(FREQS, *args,
+                                                               "R24"),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_packed_table_columns(model, with_o3):
+    """Each column of the packed table, read at the offsets LineTables
+    gives, is the release's line table in float32."""
+    lay = k1.table_layout(model, with_o3)
+    tab = k1.line_tables(model, with_o3, torch.device("cpu")).numpy()
+    assert tab.dtype == np.float32 and tab.shape == (lay.size,)
+    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
+
+    def cols(base, n, fields, source):
+        for i, name in enumerate(fields):
+            np.testing.assert_array_equal(
+                tab[base + i * n: base + (i + 1) * n],
+                np.asarray(getattr(source, name), np.float32), err_msg=name)
+
+    cols(lay.h2o, lay.n_h2o, k1.H2O_FIELDS, h2o)
+    cols(lay.o2, lay.n_o2, k1.O2_FIELDS, o2)
+    if with_o3:
+        cols(lay.o3, lay.n_o3, k1.O3_FIELDS, o3_lines)
+    else:
+        assert lay.n_o3 == 0 and lay.o3 == lay.gl
+    head = dict(zip(k1.HEADER_FIELDS, tab[:len(k1.HEADER_FIELDS)]))
+    assert head["cutoff"] == np.float32(h2o.cutoff_ghz)
+    assert head["mixing_basis_p"] == float(o2.mixing_basis == "p")
+    # the 1998 dry continuum for R98 and R03 (ops/absorption/n2.py)
+    dry98 = model in ("R98", "R03")
+    assert head["n2_exp"] == np.float32(3.55 if dry98 else 3.6)
+    assert head["n2_fdep"] == (0.0 if dry98 else 1.0)
+    np.testing.assert_array_equal(tab[lay.gl:lay.gl + 16],
+                                  k1._GL_X.astype(np.float32))

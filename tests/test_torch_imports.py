@@ -1,0 +1,99 @@
+"""The torch port stands alone: it imports no jax and reads the JAX package's
+spectroscopy tables by file path, number for number."""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mwr_fast_forward_operators_and_lbls_tpu_torch as port
+from mwr_fast_forward_operators_and_lbls_tpu import constants as jconst
+from mwr_fast_forward_operators_and_lbls_tpu.ops.absorption import h2o as jh2o
+from mwr_fast_forward_operators_and_lbls_tpu_torch import constants as tconst
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
+    h2o as th2o)
+
+torch.set_num_threads(1)
+
+PORT_DIR = pathlib.Path(port.__file__).parent
+REPO = PORT_DIR.parent
+JAX_PKG = "mwr_fast_forward_operators_and_lbls_tpu"
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT_DIR)))
+def test_port_sources_import_no_jax(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", JAX_PKG), f"{path}: imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (f"import sys, {port.__name__} as m; "
+            f"from {port.__name__}.models import lbl; "
+            f"from {port.__name__}.ops.cuda import absorption, rte; "
+            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"('jax', 'jaxlib', '{JAX_PKG}')); "
+            f"print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _assert_same_dataclass(a, b):
+    assert dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b)
+    for field in dataclasses.fields(a):
+        va, vb = getattr(a, field.name), getattr(b, field.name)
+        if isinstance(va, np.ndarray):
+            np.testing.assert_array_equal(va, vb, err_msg=field.name)
+        else:
+            assert va == vb, field.name
+
+
+@pytest.mark.parametrize("model", sorted(jconst.H2O_MODELS))
+def test_path_loader_tables_equal_the_jax_package(model):
+    _assert_same_dataclass(tconst.H2O_MODELS[model],
+                           jconst.H2O_MODELS[model])
+    _assert_same_dataclass(tconst.O2_MODELS[model], jconst.O2_MODELS[model])
+    assert tconst.O2_MODELS[model].has_second_order == \
+        jconst.O2_MODELS[model].has_second_order
+
+
+def test_path_loader_scalars_and_arrays_equal_the_jax_package():
+    from mwr_fast_forward_operators_and_lbls_tpu.constants import (afgl,
+                                                                   o3_lines,
+                                                                   physics)
+    np.testing.assert_array_equal(tconst.HATPRO_FREQS_GHZ,
+                                  jconst.HATPRO_FREQS_GHZ)
+    np.testing.assert_array_equal(tconst.ELEVATIONS_DEG,
+                                  jconst.ELEVATIONS_DEG)
+    assert tconst.N_LEVELS == jconst.N_LEVELS
+    for name in ("O3_FL", "O3_S1", "O3_B2", "O3_W3", "O3_X"):
+        np.testing.assert_array_equal(getattr(tconst, name),
+                                      getattr(o3_lines, name))
+    for clim, table in afgl.CLIMATOLOGIES.items():
+        for key, values in table.items():
+            np.testing.assert_array_equal(tconst.CLIMATOLOGIES[clim][key],
+                                          values)
+    for name in ("HK_GHZ", "T_COSMIC", "RV", "EARTH_RADIUS", "C_LIGHT",
+                 "H_PLANCK", "K_BOLTZ"):
+        assert getattr(tconst, name) == getattr(physics, name), name
+
+
+def test_gauss_laguerre_rule_matches_the_jax_tables():
+    np.testing.assert_allclose(th2o._GL_X, jh2o._GL_X, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(th2o._GL_W, jh2o._GL_W, rtol=1e-12, atol=0)
