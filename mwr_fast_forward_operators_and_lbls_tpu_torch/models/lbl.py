@@ -88,6 +88,24 @@ def _afgl_o3(z_m):
     return _interp(z_m / 1000.0, xp, fp)
 
 
+def level_major_profiles(profiles: dict, config: LBLConfig) -> dict:
+    """z, p, t, rho and lwc of (B, L) profiles as contiguous (L, B) tensors
+    of `config.dtype` on the profiles' device; lwc is zero when absent or
+    when `config.include_liquid` is off."""
+    dtype = getattr(torch, config.dtype)
+    device = torch.as_tensor(profiles["p"]).device
+
+    def level_major(a):
+        return torch.as_tensor(a).to(device=device, dtype=dtype).T.contiguous()
+
+    out = {k: level_major(profiles[k]) for k in ("z", "p", "t", "rho")}
+    lwc = profiles.get("lwc")
+    out["lwc"] = (torch.zeros_like(out["rho"])
+                  if lwc is None or not config.include_liquid
+                  else level_major(lwc))
+    return out
+
+
 def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
                   tables=None):
     """Vectorized forward: dict of (B, L) tensors -> dict of batched outputs.
@@ -102,24 +120,17 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
     (B, E, F) and trans_level (B, E, F, L).
     """
     dtype = getattr(torch, config.dtype)
-    p = torch.as_tensor(profiles["p"])
-    device = p.device
+    device = torch.as_tensor(profiles["p"]).device
     if config.use_kernels and device.type == "cuda" and dtype != torch.float32:
         raise ValueError(f"the CUDA kernels are float32 only; got dtype "
                          f"{config.dtype!r} (use_kernels=False runs the plain "
                          f"torch path in any dtype)")
-
-    def level_major(a):
-        return torch.as_tensor(a).to(device=device, dtype=dtype).T.contiguous()
-
-    z, p, t, rho = (level_major(profiles[k]) for k in ("z", "p", "t", "rho"))
-    lwc = profiles.get("lwc")
-    lwc = (torch.zeros_like(rho) if lwc is None or not config.include_liquid
-           else level_major(lwc))
+    z, p, t, rho, lwc = level_major_profiles(profiles, config).values()
     o3 = None
     if config.include_o3:
         o3 = profiles.get("o3_ppmv")
-        o3 = _afgl_o3(z) if o3 is None else level_major(o3)
+        o3 = (_afgl_o3(z) if o3 is None
+              else torch.as_tensor(o3).to(z).T.contiguous())
 
     want_trans = "trans_level" in config.outputs
     if config.use_kernels:

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources under `csrc/` have a plain C interface, so one `nvcc -shared`
-call builds them into a shared library in seconds, with no PyTorch headers.
-The library is keyed by a hash of the sources and the flags and lands in
-`build/torch_kernels/` at the root of the checkout; it is built at first use.
+The sources under `csrc/` have a plain C interface and include no PyTorch
+headers: nvcc compiles each in its own process, in parallel, and one
+`nvcc -shared` call links them into a shared library.  The library is keyed
+by a hash of the sources and the flags and lands in `build/torch_kernels/`
+at the root of the checkout; it is built at first use.
 """
 
 import ctypes
@@ -18,7 +19,7 @@ _PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Where the CUDA toolkit installs itself when neither PATH nor CUDA_HOME
 # points at it.
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -30,9 +31,15 @@ SIGNATURES = {
     # p, t, rho, lwc, o3, freqs, nf, tables, table_size, n_h2o, n_o2, n_o3,
     # h2o_off, o2_off, o3_off, gl_off, n, out, stream
     "mwr_absorption_lb": [_P] * 6 + [_I, _P] + [_I] * 9 + [_P, _P],
+    # p, t, rho, lwc, freqs, nf, tables, table_size, n_h2o, n_o2, h2o_off,
+    # o2_off, gl_off, n, out, out_dt, out_dr, stream
+    "mwr_absorption_tangents_lb": [_P] * 5 + [_I, _P] + [_I] * 7 + [_P] * 4,
     # cos_el, freqs, alpha, z, n, t, E, F, L, B, alpha_is_mid, hk_ghz,
     # t_cosmic, earth_radius, tb, tau, tmr, trans, stream
     "mwr_forward_lb": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P] * 5,
+    # mode, freqs, alpha, da, da2, ds, t, dnl, dk, dn, r0cos, E, F, L, B,
+    # hk_ghz, t_cosmic, out, out2, stream
+    "mwr_kmatrix_lb": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P] * 3,
 }
 
 
@@ -56,28 +63,45 @@ def find_nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile `csrc/*.cu` into one shared library unless it is built already,
-    and return its path.  nvcc's report (registers, spills) is kept beside it
-    with the suffix `.log`."""
+    and return its path.  Each source compiles in its own nvcc process, all
+    started together; one `nvcc -shared` links the objects.  nvcc's report
+    (registers, spills) is kept beside the library with the suffix `.log`."""
     nvcc = find_nvcc()
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib = BUILD_DIR / f"libmwr_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode:
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}"
+            for src, proc in zip(sources, procs)]
+    tmp = lib.with_name(f"{tag}.tmp")
+    try:
+        failed = [log for log, proc in zip(logs, procs) if proc.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True, check=False)
+            if link.returncode:
+                failed = [f"== link\n{link.stdout}{link.stderr}"]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "".join(failed))
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc exited with {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

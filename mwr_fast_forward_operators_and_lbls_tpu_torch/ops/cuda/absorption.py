@@ -1,8 +1,10 @@
-"""Absorption kernel K1 (`csrc/absorption.cu`), its wrapper and plain version.
+"""Absorption kernels K1 and K4 (`csrc/absorption.cu`), their wrappers and
+plain versions.
 
-`absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km].  On CPU
-tensors it runs `absorption_lb_reference`, the plain torch `total_absorption`;
-on CUDA tensors it launches the kernel or raises.
+`absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km];
+`absorption_tangents_lb` returns alpha with its elementwise partials in T and
+rho (K4, the dual-number mode of K1).  On CPU tensors each runs its plain
+torch version; on CUDA tensors it launches its kernel or raises.
 """
 
 import dataclasses
@@ -14,6 +16,7 @@ import torch
 from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import total_absorption
 from ..absorption.h2o import _GL_W, _GL_X
+from ..tensors import constant_vector
 from . import _build
 
 # Scalar slots at the head of the packed table, in the order of the `Header`
@@ -102,11 +105,6 @@ def line_tables(model: str, o3: bool, device) -> torch.Tensor:
                            device=device)
 
 
-@functools.lru_cache(maxsize=64)
-def _device_vector(values: tuple, device) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=device)
-
-
 def absorption_lb_reference(freqs, p, t, rho, lwc, model: str = "R24",
                             o3=None):
     """Plain version of K1: `total_absorption` in the (F, L, B) layout."""
@@ -114,6 +112,40 @@ def absorption_lb_reference(freqs, p, t, rho, lwc, model: str = "R24",
     return total_absorption(f, p[None], t[None], rho[None], lwc[None],
                             model=model,
                             o3_ppmv=None if o3 is None else o3[None])
+
+
+def absorption_partials_lb(freqs, p, t, rho, lwc, model: str = "R24",
+                           wrt=("t", "rho")):
+    """alpha (F, L, B) and {name: dalpha/dname (F, L, B)} for each name of
+    `wrt` in {"p", "t", "rho"}, in plain torch.
+
+    Absorption at a level depends only on the state at that level, so a
+    forward-mode pass seeded with ones gives the whole diagonal of
+    dalpha/dname: one `torch.func.jvp` per name.
+    """
+    state = dict(p=p, t=t, rho=rho)
+
+    def alpha_of(name, value):
+        s = {**state, name: value}
+        return absorption_lb_reference(freqs, s["p"], s["t"], s["rho"], lwc,
+                                       model)
+
+    alpha, partials = None, {}
+    for name in wrt:
+        alpha, partials[name] = torch.func.jvp(
+            functools.partial(alpha_of, name), (state[name],),
+            (torch.ones_like(state[name]),))
+    if alpha is None:
+        alpha = absorption_lb_reference(freqs, p, t, rho, lwc, model)
+    return alpha, partials
+
+
+def absorption_tangents_lb_reference(freqs, p, t, rho, lwc,
+                                     model: str = "R24"):
+    """Plain version of K4: alpha, dalpha/dT and dalpha/drho, each (F, L, B),
+    from two jvp passes of `absorption_lb_reference`."""
+    alpha, d = absorption_partials_lb(freqs, p, t, rho, lwc, model)
+    return alpha, d["t"], d["rho"]
 
 
 def _check_inputs(freqs, arrays: dict, tables, layout: LineTables):
@@ -152,16 +184,11 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
     if p.device.type == "cpu":
         return absorption_lb_reference(freqs, p, t, rho, lwc, model, o3)
     with_o3 = o3 is not None
-    layout = table_layout(model, with_o3)
-    if tables is None:
-        tables = line_tables(model, with_o3, p.device)
     arrays = dict(p=p, t=t, rho=rho, lwc=lwc)
     if with_o3:
         arrays["o3"] = o3
-    _check_inputs(freqs, arrays, tables, layout)
-    lev, batch = p.shape
-    f = _device_vector(tuple(float(v) for v in freqs), p.device)
-    out = torch.empty((len(freqs), lev, batch), dtype=torch.float32,
+    layout, tables, f = _kernel_args(freqs, arrays, model, with_o3, tables)
+    out = torch.empty((len(freqs), *p.shape), dtype=torch.float32,
                       device=p.device)
     with torch.cuda.device(p.device):
         err = _build.library().mwr_absorption_lb(
@@ -169,7 +196,7 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
             o3.data_ptr() if with_o3 else None, f.data_ptr(), len(freqs),
             tables.data_ptr(), layout.size, layout.n_h2o, layout.n_o2,
             layout.n_o3, layout.h2o, layout.o2, layout.o3, layout.gl,
-            lev * batch, out.data_ptr(),
+            p.numel(), out.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream)
     if err:
         raise RuntimeError(f"absorption kernel launch failed: CUDA error {err}")
@@ -178,3 +205,47 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
 
 
 absorption_lb.launches = 0
+
+
+def _kernel_args(freqs, arrays: dict, model: str, with_o3: bool, tables):
+    """Check the inputs of K1/K4; return the table layout, the packed table
+    (built and cached when `tables` is None) and the channel vector."""
+    device = arrays["p"].device
+    layout = table_layout(model, with_o3)
+    if tables is None:
+        tables = line_tables(model, with_o3, device)
+    _check_inputs(freqs, arrays, tables, layout)
+    return layout, tables, constant_vector(freqs, torch.float32, device)
+
+
+def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
+                           tables=None):
+    """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] -> alpha,
+    dalpha/dT [Np/km/K] and dalpha/drho [Np/km per g/m^3], each (F, L, B),
+    in one dual-number pass.
+
+    CPU tensors take the plain version.  CUDA tensors (float32, contiguous)
+    launch K4; `tables` is the packed `line_tables(model, False, device)`
+    (K4 has no O3 term), built and cached here when not given.
+    """
+    if p.device.type == "cpu":
+        return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model)
+    layout, tables, f = _kernel_args(freqs, dict(p=p, t=t, rho=rho, lwc=lwc),
+                                     model, False, tables)
+    out = torch.empty((3, len(freqs), *p.shape), dtype=torch.float32,
+                      device=p.device)
+    with torch.cuda.device(p.device):
+        err = _build.library().mwr_absorption_tangents_lb(
+            p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
+            f.data_ptr(), len(freqs), tables.data_ptr(), layout.size,
+            layout.n_h2o, layout.n_o2, layout.h2o, layout.o2, layout.gl,
+            p.numel(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"absorption tangent kernel launch failed: CUDA "
+                           f"error {err}")
+    absorption_tangents_lb.launches += 1
+    return out[0], out[1], out[2]
+
+
+absorption_tangents_lb.launches = 0

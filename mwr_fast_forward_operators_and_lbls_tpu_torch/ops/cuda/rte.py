@@ -12,8 +12,8 @@ import torch
 
 from ...constants import physics as phys
 from .. import geometry, rte
+from ..tensors import constant_vector
 from . import _build
-from .absorption import _device_vector
 
 
 def _cos_elevations(elevations, dtype, device) -> torch.Tensor:
@@ -79,7 +79,7 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     n_el, n_ch = len(elevations), len(freqs)
     dev = z.device
     cos_el = _device_cos(tuple(float(v) for v in elevations), dev)
-    f = _device_vector(tuple(float(v) for v in freqs), dev)
+    f = constant_vector(freqs, torch.float32, dev)
     out = {k: torch.empty((n_el, n_ch, batch), dtype=torch.float32,
                           device=dev)
            for k in ("tb", "tau_total", "t_mr")}

@@ -1,4 +1,5 @@
-"""Argument promotion shared by the elementwise physics ops."""
+"""Argument promotion shared by the elementwise physics ops, and cached
+device constants."""
 
 import functools
 
@@ -18,3 +19,16 @@ def promote(*xs):
     device = next((t.device for t in ts if t.device.type != "cpu"),
                   ts[0].device)
     return [t.to(device=device, dtype=dtype) for t in ts]
+
+
+@functools.lru_cache(maxsize=64)
+def _constant_vector(values: tuple, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant_vector(values, dtype, device) -> torch.Tensor:
+    """A 1-D tensor of `values` (channels, elevations) on `device`, made once
+    and cached: a fresh host-to-device copy would wait for the stream.
+    Treat it as read-only."""
+    return _constant_vector(tuple(float(v) for v in values), dtype,
+                            torch.device(device))

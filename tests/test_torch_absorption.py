@@ -1,10 +1,11 @@
-"""The port's absorption ops and the module of kernel K1
+"""The port's absorption ops and the module of kernels K1 and K4
 (`ops/cuda/absorption.py`), held against the frozen fp64 goldens and the JAX
-package's XLA `total_absorption` on the same inputs."""
+package's XLA `total_absorption` (and its jax.jvp) on the same inputs."""
 
 import json
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +151,86 @@ def test_packed_table_columns(model, with_o3):
     assert head["n2_fdep"] == (0.0 if dry98 else 1.0)
     np.testing.assert_array_equal(tab[lay.gl:lay.gl + 16],
                                   k1._GL_X.astype(np.float32))
+
+
+def _jax_partial(model, name, lev, freqs):
+    """alpha and its partial in `name` (seeded with ones) by jax.jvp of the
+    XLA total_absorption, float64, levels (L, B) numpy."""
+    f = jnp.asarray(freqs, jnp.float64)[:, None, None]
+    state = {k: jnp.asarray(lev[k])[None] for k in ("p", "t", "rho")}
+
+    def alpha_of(v):
+        s = {**state, name: v}
+        return jax_total_absorption(f, s["p"], s["t"], s["rho"],
+                                    jnp.asarray(lev["lwc"])[None],
+                                    model=model)
+
+    value, tangent = jax.jvp(alpha_of, (state[name],),
+                             (jnp.ones_like(state[name]),))
+    return np.asarray(value), np.asarray(tangent)
+
+
+@pytest.fixture(scope="module")
+def levels64():
+    """(L, B) float64 levels of demo_batch(2, 40): the cloud layer is in."""
+    return {k: v.T.contiguous().double()
+            for k, v in lbl.demo_batch(2, 40).items()}
+
+
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_tangents_reference_matches_jax_jvp(levels64, model):
+    """K4's plain version (two torch.func.jvp passes) against jax.jvp of the
+    XLA absorption in float64, every release: the same formulas, so
+    agreement to 1e-9 relative, with a floor of 1e-12 of each channel's
+    largest partial where a partial crosses zero."""
+    args = [levels64[k] for k in ("p", "t", "rho", "lwc")]
+    got = k1.absorption_tangents_lb_reference(FREQS, *args, model)
+    lev = {k: v.numpy() for k, v in levels64.items()}
+    with jax.enable_x64(True):
+        alpha, da_t = _jax_partial(model, "t", lev, FREQS)
+        _, da_rho = _jax_partial(model, "rho", lev, FREQS)
+    for g, want in zip(got, (alpha, da_t, da_rho)):
+        assert g.dtype == torch.float64 and g.shape == want.shape
+        floor = 1e-12 * np.abs(want).max(axis=(1, 2), keepdims=True)
+        assert np.all(np.abs(g.numpy() - want)
+                      <= 1e-9 * np.abs(want) + floor), model
+
+
+def test_pressure_partial_matches_jax_jvp(levels64):
+    args = [levels64[k] for k in ("p", "t", "rho", "lwc")]
+    alpha, d = k1.absorption_partials_lb(FREQS, *args, "R98", wrt=("p",))
+    lev = {k: v.numpy() for k, v in levels64.items()}
+    with jax.enable_x64(True):
+        want_alpha, want_dp = _jax_partial("R98", "p", lev, FREQS)
+    np.testing.assert_allclose(alpha.numpy(), want_alpha, rtol=1e-10)
+    np.testing.assert_allclose(d["p"].numpy(), want_dp, rtol=1e-9,
+                               atol=1e-12 * np.abs(want_dp).max())
+    assert set(d) == {"p"}
+
+
+def test_tangents_are_the_derivatives(levels64):
+    """Central differences of the plain absorption in T and rho, float64:
+    the O(h^2) truncation of the differences sets the 1e-5 tolerance."""
+    p, t, rho, lwc = (levels64[k] for k in ("p", "t", "rho", "lwc"))
+    alpha, da_t, da_rho = k1.absorption_tangents_lb_reference(
+        FREQS, p, t, rho, lwc, "R24")
+
+    def fd(dt=0.0, dr=0.0):
+        return k1.absorption_lb_reference(FREQS, p, t + dt, rho + dr, lwc)
+
+    for got, want in ((da_t, (fd(dt=1e-4) - fd(dt=-1e-4)) / 2e-4),
+                      (da_rho, (fd(dr=1e-5) - fd(dr=-1e-5)) / 2e-5)):
+        scale = want.abs().amax(dim=(1, 2), keepdim=True)
+        assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    torch.testing.assert_close(alpha, fd(), rtol=0, atol=0)
+
+
+def test_tangent_wrapper_takes_the_plain_version_on_cpu():
+    prof = {k: v.T.contiguous() for k, v in lbl.demo_batch(2, 30).items()}
+    args = [prof[k] for k in ("p", "t", "rho", "lwc")]
+    got = k1.absorption_tangents_lb(FREQS, *args, "R24")
+    assert k1.absorption_tangents_lb.launches == 0
+    want = k1.absorption_tangents_lb_reference(FREQS, *args, "R24")
+    for g, w in zip(got, want):
+        assert g.shape == (len(FREQS), 30, 2) and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

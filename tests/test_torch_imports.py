@@ -2,8 +2,10 @@
 spectroscopy tables by file path, number for number."""
 
 import ast
+import ctypes
 import dataclasses
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -17,6 +19,7 @@ from mwr_fast_forward_operators_and_lbls_tpu.ops.absorption import h2o as jh2o
 from mwr_fast_forward_operators_and_lbls_tpu_torch import constants as tconst
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
     h2o as th2o)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import _build
 
 torch.set_num_threads(1)
 
@@ -44,8 +47,10 @@ def test_port_sources_import_no_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (f"import sys, {port.__name__} as m; "
-            f"from {port.__name__}.models import lbl; "
-            f"from {port.__name__}.ops.cuda import absorption, rte; "
+            f"from {port.__name__}.models import jacobians, lbl; "
+            f"from {port.__name__}.ops import geometry, rte, thermo; "
+            f"from {port.__name__}.ops.cuda import _build, absorption, "
+            f"adjoint, rte; "
             f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             f"('jax', 'jaxlib', '{JAX_PKG}')); "
             f"print(bad); sys.exit(1 if bad else 0)")
@@ -97,3 +102,28 @@ def test_path_loader_scalars_and_arrays_equal_the_jax_package():
 def test_gauss_laguerre_rule_matches_the_jax_tables():
     np.testing.assert_allclose(th2o._GL_X, jh2o._GL_X, rtol=1e-12, atol=0)
     np.testing.assert_allclose(th2o._GL_W, jh2o._GL_W, rtol=1e-12, atol=0)
+
+
+def _c_entry_points():
+    """{name: [C parameter types]} of every extern "C" function in csrc/."""
+    out = {}
+    for src in sorted((PORT_DIR / "csrc").glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            out[name] = [" ".join(p.split()[:-1]) if "*" not in p
+                         else "pointer" for p in params.split(",")]
+    return out
+
+
+def test_every_c_entry_point_has_its_ctypes_signature():
+    """A missing or short SIGNATURES row makes ctypes pass a device pointer
+    as a 32-bit int: every pointer is c_void_p, every int c_int, every
+    float c_float, in order."""
+    ctype = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    entries = _c_entry_points()
+    assert set(entries) == set(_build.SIGNATURES)
+    assert {"mwr_absorption_lb", "mwr_absorption_tangents_lb",
+            "mwr_forward_lb", "mwr_kmatrix_lb"} <= set(entries)
+    for name, params in entries.items():
+        assert _build.SIGNATURES[name] == [ctype[p] for p in params], name

@@ -225,3 +225,49 @@ def test_wrapper_takes_the_plain_version_on_cpu(levels):
                                    want_trans_level=True)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("elev", [30.0, 4.2])
+def test_airmass_and_local_zenith_match_jax(levels, elev):
+    args = [levels[k][:, 1] for k in ("z", "p", "t", "e")]
+    with jax.enable_x64(True):
+        want_am = float(jgeo.airmass(*args, elev))
+        want_za = np.asarray(jgeo.local_zenith_angles(*args, elev))
+    targs = [torch.from_numpy(a) for a in args]
+    am = geometry.airmass(*targs, elev)
+    za = geometry.local_zenith_angles(*targs, elev)
+    assert abs(float(am) - want_am) <= 1e-12 * want_am
+    np.testing.assert_allclose(za.numpy(), want_za, rtol=1e-12, atol=1e-10)
+    # over the curved Earth the ray steepens against the local vertical
+    assert bool((torch.diff(za) < 0).all())
+
+
+@pytest.mark.parametrize("emissivity", [1.0, 0.6])
+def test_upwelling_matches_jax(levels, emissivity):
+    alpha = levels["alpha"][:, :, 0]
+    t = levels["t"][:, 0]
+    f = np.asarray(FREQS)
+    with jax.enable_x64(True):
+        ds = np.asarray(jgeo.slant_path_lengths(
+            *(levels[k][:, 0] for k in ("z", "p", "t", "e")), 90.0))
+        want = {k: np.asarray(v) for k, v in jrte.upwelling_tb(
+            alpha, ds, t, f, emissivity=emissivity).items()}
+    got = rte.upwelling_tb(*(torch.tensor(a) for a in (alpha, ds, t, f)),
+                           emissivity=emissivity)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v, rtol=1e-12, atol=1e-9,
+                                   err_msg=k)
+
+
+def test_upwelling_opaque_limit():
+    """An opaque isothermal column seen from the top radiates its own
+    temperature."""
+    f = torch.tensor([60.0], dtype=torch.float64)
+    n = 30
+    alpha = torch.full((1, n), 5.0, dtype=torch.float64)
+    ds = torch.full((n - 1,), 1.0, dtype=torch.float64)
+    t = torch.full((n,), 250.0, dtype=torch.float64)
+    up = rte.upwelling_tb(alpha, ds, t, f, t_surface=torch.tensor(
+        300.0, dtype=torch.float64))
+    assert abs(float(up["tb"][0]) - 250.0) < 1e-6
