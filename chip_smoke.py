@@ -1,14 +1,14 @@
-"""Drive the PyTorch/CUDA port's line-by-line forward and K-matrix on one GPU
-and check them.
+"""Drive the PyTorch/CUDA port's line-by-line forward, K-matrix and
+monochromatic spectral forward on one GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
-toolkit.  It builds the port's kernels from `csrc/` and goes through ten
-phases, each printing its own lines:
+toolkit.  It builds the port's kernels from `csrc/` and goes through
+fourteen phases, each printing its own lines:
 
-  0. the card (nvidia-smi name and power limit), torch/CUDA versions and the
-     kernel build time;
+  0. the card (nvidia-smi name and power limit), torch/CUDA versions, the
+     kernel build time and each kernel instantiation's registers and spills;
   1. the absorption kernel (K1) against its plain torch version on the card;
   2. the RTE kernel (K2) against its plain torch version on the card;
   3. the forward path, `forward_batch` on 1024 HATPRO profiles x 180 levels,
@@ -27,7 +27,21 @@ phases, each printing its own lines:
      physical signs;
   9. CUDA-event times of K4, K5 and the K-matrix against the plain versions,
      of `forward_batch` at the same batch, of the output permute alone, and
-     peak device memory.
+     peak device memory;
+ 10. the spectral absorption kernel (K6) against its plain version: R24 on
+     one full chunk (32 x 180 points x 8192 frequencies), the other eight
+     releases on 256 points x 2048 frequencies, R03's 1998 dry continuum, a
+     grid with a tail tile, and the refusal of an f_range that excludes the
+     grid;
+ 11. the given-path RTE kernel (K3) against its plain version at the
+     spectral chunk shape and at the HATPRO scan shape with trans_level;
+ 12. the spectral path, `forward_spectral` plus `srf_convolve` on 32
+     profiles x 180 levels x 50,000 frequencies (R24, zenith, chunks of
+     8192), with the launch counts of K6 and K3, against the plain path, the
+     channel forward at the 14 channel centres, the spectrum's line
+     structure and a float64 SRF product;
+ 13. CUDA-event times of K6 and K3 per chunk, of the plain versions on one
+     chunk, and of the whole spectrum with the SRF, with peak device memory.
 
 It then prints one JSON line of per-kernel results and, last, one JSON line
 naming the device.  Any failed check raises, and the exit code is not 0.
@@ -37,11 +51,14 @@ Without a CUDA device it exits with 1 and prints no result.
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -50,6 +67,7 @@ B, L = 1024, 180        # the HATPRO boundary-layer scan shape of bench.py
 BK = 256                # the K-matrix batch of bench.py (BASELINE config 4)
 WRT = ("t", "rho", "lwc")
 REPEATS = 20
+BS, NF_SPEC, CHUNK = 32, 50_000, 8192   # the spectral shape of bench.py
 
 
 def check(cond, msg):
@@ -98,6 +116,33 @@ def peak_mib(fn):
     return (torch.cuda.max_memory_allocated() - live) / 2 ** 20
 
 
+def ptxas_report(log: str):
+    """(source, kernel, report) for each kernel instantiation in nvcc's
+    `-Xptxas -v` log; kernel names are demangled when c++filt is there."""
+    entries, src, key = {}, None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            key = (src, m.group(1))
+            entries[key] = {"regs": "?", "spill": ""}
+        elif key is None:
+            continue
+        elif m := re.search(r"Used (\d+) registers", line):
+            entries[key]["regs"] = m.group(1)
+        elif "spill" in line:
+            entries[key]["spill"] = line.strip()
+    names = [name for _, name in entries]
+    if shutil.which("c++filt") and names:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                 .removeprefix("void ") for n in names]
+    return [(s_, name, f"{e['regs']} registers, {e['spill']}")
+            for ((s_, _), e), name in zip(entries.items(), names)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -105,9 +150,9 @@ def main() -> int:
     from mwr_fast_forward_operators_and_lbls_tpu_torch.anchors import (
         standard_profiles)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
-        H2O_MODELS)
+        H2O_MODELS, hatpro)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
-        jacobians, lbl)
+        jacobians, lbl, spectral)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (geometry,
                                                                    thermo)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
@@ -118,8 +163,13 @@ def main() -> int:
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (  # noqa: E501
         kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
         kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (  # noqa: E501
+        n2_absorption)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
-        forward_lb, forward_lb_reference)
+        downwelling_lb, downwelling_lb_reference, forward_lb,
+        forward_lb_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (  # noqa: E501
+        absorption_spectral, absorption_spectral_reference)
 
     # the plain versions are the reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -142,9 +192,9 @@ def main() -> int:
     _build.library()
     print(f"phase 0: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s ({lib_path.name})")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"phase 0: ptxas: {line.strip()}")
+    for src, name, report in ptxas_report(
+            lib_path.with_suffix(".log").read_text()):
+        print(f"phase 0: ptxas: {src} {name}: {report}")
 
     # ---- phase 1: K1 against its plain version --------------------------
     def k1_case(model, batch, with_o3):
@@ -422,6 +472,193 @@ def main() -> int:
     print(f"phase 9: output permute (E, F, L, B) -> (B, E, F, L) of one "
           f"variable ({k_elfb.numel() * 4 / 1e6:.1f} MB): {perm_ms:.4f} ms")
 
+    # ---- phase 10: K6 against its plain version --------------------------
+    spec_profiles = lbl.demo_batch(BS, L, device=dev)
+    sprof = level_major(spec_profiles)
+    f_spec = torch.from_numpy(np.linspace(20.0, 64.0, NF_SPEC)
+                              .astype(np.float32)).to(dev)
+    f_chunk = f_spec[:CHUNK]
+    pick = torch.linspace(0, L * BS - 1, 256, device=dev).long()
+    points256 = {k: v.reshape(-1)[pick] for k, v in sprof.items()}
+
+    def k6_case(model, prof, f, what):
+        args = (f, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
+        got = absorption_spectral(*args)
+        ref = absorption_spectral_reference(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K6 {model} not finite")
+        axes = tuple(range(1, got.ndim))
+        err = (got - ref).abs().amax(dim=axes)
+        rel = float((err / ref.abs().amax(dim=axes)).max())
+        print(f"phase 10: K6 {model} {what} x F={f.numel()}: max|dalpha| "
+              f"{float(err.max()):.3e} Np/km, max per-frequency relative "
+              f"{rel:.3e} (bound 1e-4)")
+        check(rel <= 1e-4, f"K6 {model} {what} relative error {rel}")
+        return got, float(err.max())
+
+    alpha_chunk, k6_err = k6_case("R24", sprof, f_chunk,
+                                  f"L={L} x B={BS} points")
+    f2048 = torch.linspace(20.0, 64.0, 2048, device=dev)
+    for model in H2O_MODELS:
+        if model != "R24":
+            k6_case(model, points256, f2048, "256 points")
+    k6_case("R24", points256, f2048[:2045], "256 points, a tail tile of 13,")
+
+    # R03 takes the 1998 dry continuum (ops/absorption/n2.py); in cold dry
+    # air at 1000 hPa over 20-45 GHz the 2017 form would be off by > 1e-4
+    dry = {"p": 1000.0, "t": 220.0, "rho": 0.05, "lwc": 0.0}
+    dry = {k: torch.full((256,), v, device=dev) for k, v in dry.items()}
+    f_win = torch.linspace(20.0, 45.0, 64, device=dev)
+    got = absorption_spectral(f_win, dry["p"], dry["t"], dry["rho"],
+                              dry["lwc"], "R03")
+    ref = absorption_spectral_reference(f_win, dry["p"], dry["t"],
+                                        dry["rho"], dry["lwc"], "R03")
+    pda = (dry["p"] - dry["rho"] * dry["t"] / 217.0)[None]
+    n2_gap = (n2_absorption(f_win[:, None], pda, dry["t"][None], "R98")
+              - n2_absorption(f_win[:, None], pda, dry["t"][None], "R16"))
+    r03_err = float(((got - ref).abs() / ref.abs()).max())
+    r03_gap = float((n2_gap.abs() / ref.abs()).min())
+    print(f"phase 10: K6 R03 dry continuum: max relative |dalpha| vs plain "
+          f"{r03_err:.3e} (bound 2e-5); the 2017 form would differ by at "
+          f"least {r03_gap:.3e}")
+    check(r03_err <= 2e-5 and r03_gap > 1e-4, "K6 R03 dry continuum")
+    try:
+        absorption_spectral(f_chunk, *(sprof[k] for k in
+                                       ("p", "t", "rho", "lwc")),
+                            f_range=(30.0, 64.0))
+    except ValueError as exc:
+        print(f"phase 10: f_range (30, 64) on a 20-64 GHz grid raised: {exc}")
+    else:
+        raise RuntimeError("check failed: an f_range that excludes the grid "
+                           "did not raise")
+
+    # ---- phase 11: K3 against its plain version --------------------------
+    e_spec = thermo.rho_to_e(sprof["rho"], sprof["t"])
+    ds_zenith = geometry.slant_path_lengths_lb(
+        sprof["z"], sprof["p"], sprof["t"], e_spec, 90.0)[None].contiguous()
+
+    def k3_case(f, alpha, ds, t, want_trans, what):
+        got = downwelling_lb(f, alpha, ds, t, want_trans_level=want_trans)
+        ref = downwelling_lb_reference(f, alpha, ds, t,
+                                       want_trans_level=want_trans)
+        torch.cuda.synchronize()
+        check(set(got) == set(ref), "K3 output keys")
+        check(all(bool(torch.isfinite(v).all()) for v in got.values()),
+              "K3 output not finite")
+        errs = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+        print(f"phase 11: K3 {what} trans_level={want_trans}: "
+              + ", ".join(f"max|d {k}| {v:.3e}" for k, v in errs.items()))
+        check(errs["tb"] <= 5e-3, f"K3 tb error {errs['tb']} K > 5e-3 K")
+        if want_trans:
+            check(errs["trans_level"] <= 1e-5,
+                  f"K3 trans_level error {errs['trans_level']} > 1e-5")
+        return errs["tb"]
+
+    k3_err = k3_case(f_chunk, alpha_chunk, ds_zenith, sprof["t"], False,
+                     f"E=1 F={CHUNK} B={BS} L={L}")
+    alpha, z, n, t = k2_inputs(B)
+    ds_scan = torch.stack([geometry.chord_lengths(z, n, c) for c in
+                           torch.cos(torch.deg2rad(torch.tensor(
+                               elevs, device=dev)))]).contiguous()
+    k3_case(freqs, alpha, ds_scan, t, True,
+            f"E={len(elevs)} F={len(freqs)} B={B} L={L}")
+
+    # ---- phase 12: the spectral path ---------------------------------------
+    f_np = f_spec.cpu().numpy()
+    srf = np.zeros((len(freqs), NF_SPEC), np.float32)
+    for c, (fc, bw) in enumerate(zip(hatpro.HATPRO_FREQS_GHZ,
+                                     hatpro.nominal_bandwidth_ghz())):
+        srf[c] = np.exp(-0.5 * ((f_np - fc) / max(bw, 1e-3)) ** 2)
+    srf = torch.from_numpy(srf).to(dev)
+
+    def spectral_run(use_kernels=True):
+        out = spectral.forward_spectral(spec_profiles, f_spec, (90.0,), "R24",
+                                        freq_chunk=CHUNK,
+                                        use_kernels=use_kernels)
+        return out, spectral.srf_convolve(out["tb"], srf)
+
+    absorption_spectral.launches = 0
+    downwelling_lb.launches = 0
+    spec, tb_srf = spectral_run()
+    s_launches = {"absorption_spectral": absorption_spectral.launches,
+                  "downwelling_lb": downwelling_lb.launches}
+    torch.cuda.synchronize()
+    print(f"phase 12: launches during the spectral path: {s_launches}")
+    check(all(v > 0 for v in s_launches.values()),
+          f"a kernel of the spectral path was not launched: {s_launches}")
+    tb = spec["tb"]
+    check(tuple(tb.shape) == (BS, 1, NF_SPEC), f"tb shape {tuple(tb.shape)}")
+    check(bool(torch.isfinite(tb).all())
+          and bool(torch.isfinite(spec["tau_total"]).all()), "tb not finite")
+    plain, plain_srf = spectral_run(use_kernels=False)
+    s_err = float((tb - plain["tb"]).abs().max())
+    srf_err = float((tb_srf - plain_srf).abs().max())
+    print(f"phase 12: tb {tuple(tb.shape)} in [{float(tb.min()):.2f}, "
+          f"{float(tb.max()):.2f}] K; max|dTB| vs plain path on the card "
+          f"{s_err:.3e} K (bound 1e-2); after the SRF {srf_err:.3e} K")
+    check(s_err <= 1e-2, f"spectral path vs plain {s_err} K")
+
+    cc_cfg = lbl.LBLConfig(model="R24", elevations_deg=(90.0, 14.4),
+                           outputs=("tb", "tau_total"))
+    cc_want = lbl.forward_batch(spec_profiles, cc_cfg)
+    cc_got = spectral.forward_spectral(spec_profiles, freqs, (90.0, 14.4),
+                                       "R24")
+    cc_err = float((cc_got["tb"] - cc_want["tb"]).abs().max())
+    print(f"phase 12: at the 14 channel centres, (90, 14.4) deg: max|dTB| vs "
+          f"forward_batch {cc_err:.3e} K (bound 2e-2)")
+    check(cc_err <= 2e-2, f"spectral vs channel forward {cc_err} K")
+
+    tau = spec["tau_total"][:, 0]
+    i22, i26, i60 = (int((f_spec - g).abs().argmin())
+                     for g in (22.235, 26.0, 60.0))
+    r22 = float((tau[:, i22] / tau[:, i26]).min())
+    r60 = float((tau[:, i60] / tau[:, i26]).min())
+    print(f"phase 12: zenith tau ratios, min over profiles: 22.235/26 GHz "
+          f"{r22:.3f} (bound > 1.2), 60/26 GHz {r60:.2f} (bound > 10)")
+    check(r22 > 1.2 and r60 > 10.0, "spectral line structure")
+
+    srf64 = srf.double() / srf.double().sum(-1, keepdim=True)
+    srf_ref = tb.double() @ srf64.T
+    srf_err64 = float((tb_srf.double() - srf_ref).abs().max())
+    print(f"phase 12: srf_convolve {tuple(tb_srf.shape)} vs the float64 "
+          f"product: max|d| {srf_err64:.3e} K (bound 1e-3)")
+    check(srf_err64 <= 1e-3, f"srf_convolve error {srf_err64} K")
+
+    # ---- phase 13: times ---------------------------------------------------
+    k6_args = (f_chunk, sprof["p"], sprof["t"], sprof["rho"], sprof["lwc"],
+               "R24")
+    k3_args = (f_chunk, alpha_chunk, ds_zenith, sprof["t"])
+    k6_ms = timed_ms(lambda: absorption_spectral(*k6_args))
+    k3_ms = timed_ms(lambda: downwelling_lb(*k3_args))
+    k6_plain_ms = timed_ms(lambda: absorption_spectral_reference(*k6_args),
+                           repeats=3, warmup=1)
+    k3_plain_ms = timed_ms(lambda: downwelling_lb_reference(*k3_args),
+                           repeats=3, warmup=1)
+    print(f"phase 13: K6 absorption per chunk ({BS * L} points x {CHUNK} "
+          f"frequencies): kernel {k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms")
+    print(f"phase 13: K3 RTE per chunk (E=1 F={CHUNK} B={BS} L={L}): kernel "
+          f"{k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    spec_ms = timed_ms(spectral_run)
+    spec_peak = peak_mib(spectral_run)
+    levels = lbl.level_major_profiles(spec_profiles, lbl.LBLConfig())
+    plain_chunk_ms = timed_ms(lambda: spectral._forward_chunk(
+        levels, f_chunk, ds_zenith, "R24", False), repeats=3, warmup=1)
+    plain_chunk_peak = peak_mib(lambda: spectral._forward_chunk(
+        levels, f_chunk, ds_zenith, "R24", False))
+    rate = BS * NF_SPEC / (spec_ms * 1e-3) / 1e6
+    plain_rate = BS * CHUNK / (plain_chunk_ms * 1e-3) / 1e6
+    print(f"phase 13: forward_spectral + srf_convolve, B={BS} L={L} "
+          f"F={NF_SPEC} in chunks of {CHUNK}: {spec_ms:.4f} ms = {rate:.6g} M "
+          f"frequency points/s, peak {spec_peak:.1f} MiB above the live "
+          f"tensors")
+    print(f"phase 13: plain path, one chunk of {CHUNK}: {plain_chunk_ms:.4f} "
+          f"ms = {plain_rate:.6g} M frequency points/s, peak "
+          f"{plain_chunk_peak:.1f} MiB above the live tensors")
+    perm = downwelling_lb(*k3_args)["tb"]
+    perm_ms = timed_ms(lambda: perm.permute(2, 0, 1).contiguous())
+    print(f"phase 13: per-chunk output permute (E, F, B) -> (B, E, F) of tb "
+          f"({perm.numel() * 4 / 1e6:.2f} MB): {perm_ms:.4f} ms")
+
     print(json.dumps({"kernels": [
         {"name": "absorption_lb", "route": "cuda",
          "source": f"{PKG}/csrc/absorption.cu",
@@ -455,6 +692,18 @@ def main() -> int:
          "launches": k_launches["kmatrix_assembled_rho_lwc_lb"],
          "max_abs_err": k5_err["rho_lwc"], "ms": k5_ms["rho_lwc"][0],
          "plain_ms": k5_ms["rho_lwc"][1]},
+        {"name": "absorption_spectral", "route": "cuda",
+         "source": f"{PKG}/csrc/absorption_spectral.cu",
+         "replaces": "mwr_fast_forward_operators_and_lbls_tpu/ops/pallas/"
+                     "spectral_kernel.py:558",
+         "launches": s_launches["absorption_spectral"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms},
+        {"name": "downwelling_lb", "route": "cuda",
+         "source": f"{PKG}/csrc/rte.cu",
+         "replaces": "mwr_fast_forward_operators_and_lbls_tpu/ops/pallas/"
+                     "rte_kernel.py:479",
+         "launches": s_launches["downwelling_lb"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -148,28 +148,36 @@ def absorption_tangents_lb_reference(freqs, p, t, rho, lwc,
     return alpha, d["t"], d["rho"]
 
 
-def _check_inputs(freqs, arrays: dict, tables, layout: LineTables):
+def check_points(arrays: dict, tables, layout: LineTables, ndim=None):
+    """Check the point arrays and the packed table an absorption kernel
+    reads: float32, contiguous, one shape (of `ndim` axes when given) and
+    one CUDA device."""
     ref = arrays["p"]
     for name, a in arrays.items():
         if not a.is_cuda or a.dtype != torch.float32:
             raise TypeError(f"{name}: the absorption kernel takes float32 "
                             f"CUDA tensors, got {a.dtype} on {a.device}")
-        if a.device != ref.device or a.shape != ref.shape or a.ndim != 2:
-            raise ValueError(f"{name}: expected {tuple(ref.shape)} (L, B) on "
+        if (a.device != ref.device or a.shape != ref.shape
+                or (ndim is not None and a.ndim != ndim)):
+            raise ValueError(f"{name}: expected {tuple(ref.shape)} on "
                              f"{ref.device}, got {tuple(a.shape)} on "
                              f"{a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= len(freqs) <= MAX_CHANNELS:
-        raise ValueError(f"the absorption kernel takes 1..{MAX_CHANNELS} "
-                         f"channels, got {len(freqs)}")
     if not 0 < ref.numel() < 2 ** 31:
-        raise ValueError(f"L*B = {ref.numel()} out of range")
+        raise ValueError(f"{ref.numel()} points out of range")
     if (tables.device != ref.device or tables.dtype != torch.float32
             or tables.shape != (layout.size,) or not tables.is_contiguous()):
         raise ValueError(f"tables: expected ({layout.size},) float32 on "
                          f"{ref.device}, got {tuple(tables.shape)} "
                          f"{tables.dtype} on {tables.device}")
+
+
+def _check_inputs(freqs, arrays: dict, tables, layout: LineTables):
+    check_points(arrays, tables, layout, ndim=2)
+    if not 1 <= len(freqs) <= MAX_CHANNELS:
+        raise ValueError(f"the absorption kernel takes 1..{MAX_CHANNELS} "
+                         f"channels, got {len(freqs)}")
 
 
 def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,

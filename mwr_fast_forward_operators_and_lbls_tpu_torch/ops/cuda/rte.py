@@ -1,9 +1,12 @@
-"""Slant-path RTE kernel K2 (`csrc/rte.cu`), its wrapper and plain version.
+"""RTE kernels K2 and K3 (two modes of `csrc/rte.cu`), their wrappers and
+plain versions.
 
-`forward_lb` maps level absorption (F, L, B), heights, refractive indices and
-temperatures (L, B) to tb, tau_total, t_mr (E, F, B) and optionally
-trans_level (E, F, L, B).  On CPU tensors it runs `forward_lb_reference`; on
-CUDA tensors it launches the kernel or raises.
+`forward_lb` (K2) maps level absorption (F, L, B), heights, refractive
+indices and temperatures (L, B) to tb, tau_total, t_mr (E, F, B) and
+optionally trans_level (E, F, L, B).  `downwelling_lb` (K3) maps the same
+absorption, given slant paths (E, L-1, B) and temperatures to the same
+outputs.  On CPU tensors each runs its plain version; on CUDA tensors it
+launches its kernel or raises.
 """
 
 import functools
@@ -40,32 +43,67 @@ def forward_lb_reference(freqs, elevations, alpha, z, n, t,
     return rte_fn(alpha, ds, t, f, want_trans_level=want_trans_level)
 
 
-def _check_inputs(freqs, alpha, levels: dict, alpha_is_mid: bool):
-    ref = levels["z"]
-    for name, a in dict(alpha=alpha, **levels).items():
+def _frequency_vector(freqs, device) -> torch.Tensor:
+    """The channel vector the RTE kernels read: a float32 tensor on `device`
+    as it is, or a sequence made into one (and cached, for the few channels
+    of a radiometer)."""
+    if not torch.is_tensor(freqs):
+        return constant_vector(freqs, torch.float32, device)
+    if (freqs.device != device or freqs.dtype != torch.float32
+            or freqs.ndim != 1 or not freqs.is_contiguous()):
+        raise ValueError(f"freqs: expected a contiguous 1-D float32 tensor "
+                         f"on {device}, got {tuple(freqs.shape)} "
+                         f"{freqs.dtype} on {freqs.device}")
+    return freqs
+
+
+def _check_inputs(n_ch, alpha, levels: dict, alpha_is_mid: bool,
+                  ds_km=None):
+    """Check the inputs of K2 (levels z, n, t) or K3 (levels t and the
+    paths ds_km)."""
+    ref = levels["t"]
+    arrays = dict(alpha=alpha, **levels)
+    if ds_km is not None:
+        arrays["ds_km"] = ds_km
+    for name, a in arrays.items():
         if not a.is_cuda or a.dtype != torch.float32:
             raise TypeError(f"{name}: the RTE kernel takes float32 CUDA "
                             f"tensors, got {a.dtype} on {a.device}")
         if a.device != ref.device or not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {ref.device}")
     if ref.ndim != 2 or ref.shape[0] < 2:
-        raise ValueError(f"z: expected (L, B) with L >= 2, got "
+        raise ValueError(f"t: expected (L, B) with L >= 2, got "
                          f"{tuple(ref.shape)}")
     for name, a in levels.items():
         if a.shape != ref.shape:
             raise ValueError(f"{name}: expected {tuple(ref.shape)}, got "
                              f"{tuple(a.shape)}")
     lev, batch = ref.shape
-    want = (len(freqs), lev - 1 if alpha_is_mid else lev, batch)
+    want = (n_ch, lev - 1 if alpha_is_mid else lev, batch)
     if tuple(alpha.shape) != want:
         raise ValueError(f"alpha: expected {want}, got {tuple(alpha.shape)}")
+    if ds_km is not None and (ds_km.ndim != 3
+                              or ds_km.shape[1:] != (lev - 1, batch)):
+        raise ValueError(f"ds_km: expected (E, {lev - 1}, {batch}), got "
+                         f"{tuple(ds_km.shape)}")
+
+
+def _outputs(n_el, n_ch, lev, batch, want_trans_level, device) -> dict:
+    out = {k: torch.empty((n_el, n_ch, batch), dtype=torch.float32,
+                          device=device)
+           for k in ("tb", "tau_total", "t_mr")}
+    if want_trans_level:
+        out["trans_level"] = torch.empty((n_el, n_ch, lev, batch),
+                                         dtype=torch.float32, device=device)
+    return out
 
 
 def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
                want_trans_level: bool = False):
     """Geometry and multi-elevation downwelling RTE.
 
-    freqs (F channels [GHz]) and elevations (E angles [deg]) are sequences.
+    freqs (F channels [GHz]) is a sequence or a float32 tensor on alpha's
+    device; elevations (E angles [deg]) a sequence.
     alpha is (F, L, B) level absorption [Np/km], or (F, L-1, B) layer-mean
     extinction when `alpha_is_mid`; z [m], n (refractive index) and t [K]
     are (L, B).  Returns tb, tau_total, t_mr (E, F, B) and, when
@@ -74,18 +112,13 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     if alpha.device.type == "cpu":
         return forward_lb_reference(freqs, elevations, alpha, z, n, t,
                                     alpha_is_mid, want_trans_level)
-    _check_inputs(freqs, alpha, dict(z=z, n=n, t=t), alpha_is_mid)
-    lev, batch = z.shape
-    n_el, n_ch = len(elevations), len(freqs)
-    dev = z.device
+    dev = t.device
+    f = _frequency_vector(freqs, dev)
+    _check_inputs(f.numel(), alpha, dict(t=t, z=z, n=n), alpha_is_mid)
+    lev, batch = t.shape
+    n_el, n_ch = len(elevations), f.numel()
     cos_el = _device_cos(tuple(float(v) for v in elevations), dev)
-    f = constant_vector(freqs, torch.float32, dev)
-    out = {k: torch.empty((n_el, n_ch, batch), dtype=torch.float32,
-                          device=dev)
-           for k in ("tb", "tau_total", "t_mr")}
-    if want_trans_level:
-        out["trans_level"] = torch.empty((n_el, n_ch, lev, batch),
-                                         dtype=torch.float32, device=dev)
+    out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
     with torch.cuda.device(dev):
         err = _build.library().mwr_forward_lb(
             cos_el.data_ptr(), f.data_ptr(), alpha.data_ptr(), z.data_ptr(),
@@ -102,3 +135,50 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
 
 
 forward_lb.launches = 0
+
+
+def downwelling_lb_reference(freqs, alpha, ds_km, t,
+                             alpha_is_mid: bool = False,
+                             want_trans_level: bool = False):
+    """Plain version of K3: `rte.downwelling_tb_lb_multi` or
+    `..._from_alpha_mid`."""
+    f = torch.as_tensor(freqs, dtype=alpha.dtype, device=alpha.device)
+    rte_fn = (rte.downwelling_tb_lb_from_alpha_mid if alpha_is_mid
+              else rte.downwelling_tb_lb_multi)
+    return rte_fn(alpha, ds_km, t, f, want_trans_level=want_trans_level)
+
+
+def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
+                   want_trans_level: bool = False):
+    """Multi-elevation downwelling RTE on given slant paths.
+
+    freqs: F frequencies [GHz], a sequence or a float32 tensor on alpha's
+    device.  alpha is (F, L, B) level absorption [Np/km], or (F, L-1, B)
+    layer-mean extinction when `alpha_is_mid`; ds_km (E, L-1, B) slant path
+    lengths [km]; t (L, B) [K].  Returns tb, tau_total, t_mr (E, F, B) and,
+    when `want_trans_level`, trans_level (E, F, L, B).
+    """
+    if alpha.device.type == "cpu":
+        return downwelling_lb_reference(freqs, alpha, ds_km, t, alpha_is_mid,
+                                        want_trans_level)
+    dev = t.device
+    f = _frequency_vector(freqs, dev)
+    _check_inputs(f.numel(), alpha, dict(t=t), alpha_is_mid, ds_km)
+    lev, batch = t.shape
+    n_el, n_ch = ds_km.shape[0], f.numel()
+    out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
+    with torch.cuda.device(dev):
+        err = _build.library().mwr_downwelling_lb(
+            f.data_ptr(), alpha.data_ptr(), ds_km.data_ptr(), t.data_ptr(),
+            n_el, n_ch, lev, batch, int(alpha_is_mid), phys.HK_GHZ,
+            phys.T_COSMIC, out["tb"].data_ptr(), out["tau_total"].data_ptr(),
+            out["t_mr"].data_ptr(),
+            out["trans_level"].data_ptr() if want_trans_level else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
+    downwelling_lb.launches += 1
+    return out
+
+
+downwelling_lb.launches = 0

@@ -47,10 +47,10 @@ def test_port_sources_import_no_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (f"import sys, {port.__name__} as m; "
-            f"from {port.__name__}.models import jacobians, lbl; "
+            f"from {port.__name__}.models import jacobians, lbl, spectral; "
             f"from {port.__name__}.ops import geometry, rte, thermo; "
             f"from {port.__name__}.ops.cuda import _build, absorption, "
-            f"adjoint, rte; "
+            f"adjoint, rte, spectral; "
             f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             f"('jax', 'jaxlib', '{JAX_PKG}')); "
             f"print(bad); sys.exit(1 if bad else 0)")
@@ -124,6 +124,7 @@ def test_every_c_entry_point_has_its_ctypes_signature():
     entries = _c_entry_points()
     assert set(entries) == set(_build.SIGNATURES)
     assert {"mwr_absorption_lb", "mwr_absorption_tangents_lb",
-            "mwr_forward_lb", "mwr_kmatrix_lb"} <= set(entries)
+            "mwr_forward_lb", "mwr_kmatrix_lb", "mwr_downwelling_lb",
+            "mwr_absorption_spectral"} <= set(entries)
     for name, params in entries.items():
         assert _build.SIGNATURES[name] == [ctype[p] for p in params], name

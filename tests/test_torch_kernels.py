@@ -12,8 +12,11 @@ import torch
 from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
     H2O_MODELS)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (jacobians,
-                                                                  lbl)
+                                                                  lbl,
+                                                                  spectral)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import geometry, thermo
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
+    n2_absorption)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import _build
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
     absorption_lb, absorption_lb_reference, absorption_tangents_lb,
@@ -22,7 +25,9 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
     kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
     kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
-    forward_lb, forward_lb_reference)
+    downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (
+    absorption_spectral, absorption_spectral_reference)
 
 torch.set_num_threads(1)
 
@@ -258,3 +263,143 @@ def test_kmatrix_wrappers_refuse_what_the_kernels_do_not_take(device):
             jacobians.kmatrix_batch_fast(profiles,
                                          lbl.LBLConfig(dtype="float64"),
                                          fused=fused)
+
+
+def _grid(nf, device):
+    """nf frequencies over 20-64 GHz: 16-frequency tiles and a tail."""
+    return torch.linspace(20.0, 64.0, nf, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", sorted(H2O_MODELS))
+def test_spectral_kernel_matches_plain(device, model):
+    """K6 against its plain version on (L, B) points and a grid of 16-wide
+    tiles plus a tail of 5: 1e-4 of each frequency's largest alpha."""
+    prof = _levels(7, 180, device)
+    f = _grid(101, device)
+    args = (f, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
+    before = absorption_spectral.launches
+    got = absorption_spectral(*args)
+    assert absorption_spectral.launches == before + 1
+    want = absorption_spectral_reference(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (101, 180, 7) and bool(torch.isfinite(got).all())
+    err = (got - want).abs().amax(dim=(1, 2))
+    scale = want.abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-4 * scale).all()), (err / scale).max()
+
+
+@pytest.mark.cuda
+def test_spectral_kernel_r03_has_the_1998_continuum(device):
+    """Cold dry air at 1000 hPa, 20-45 GHz, where the dry continuum shows:
+    K6's R03 is the plain R03, which has the 1998 continuum, to 2e-5 at
+    every point, and the 2017 form would be off by more than 1e-4."""
+    p = torch.full((64,), 1000.0, device=device)
+    t = torch.full((64,), 220.0, device=device)
+    rho = torch.full((64,), 0.05, device=device)
+    lwc = torch.zeros(64, device=device)
+    f = torch.linspace(20.0, 45.0, 33, device=device)
+    got = absorption_spectral(f, p, t, rho, lwc, "R03")
+    want = absorption_spectral_reference(f, p, t, rho, lwc, "R03")
+    pda = (p - rho * t / 217.0)[None]
+    dry = (n2_absorption(f[:, None], pda, t[None], "R98")
+           - n2_absorption(f[:, None], pda, t[None], "R16"))
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 2e-5 * want.abs()).all())
+    assert bool((dry.abs() > 1e-4 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_spectral_kernel_refuses_what_it_does_not_take(device):
+    prof = _levels(4, 20, device)
+    args = [prof[k] for k in ("p", "t", "rho", "lwc")]
+    f = _grid(40, device)
+    with pytest.raises(ValueError, match="outside f_range"):
+        absorption_spectral(f, *args, f_range=(30.0, 64.0))
+    with pytest.raises(TypeError):
+        absorption_spectral(f, args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        absorption_spectral(f, args[0][:, :2], *args[1:])
+    with pytest.raises(ValueError, match="unknown absorption model"):
+        absorption_spectral(f, *args, "R99")
+    got = absorption_spectral(f.cpu().numpy(), *args)
+    torch.testing.assert_close(got, absorption_spectral(f, *args), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha_is_mid", [False, True], ids=["level", "mid"])
+@pytest.mark.parametrize("want_trans", [False, True], ids=["tb", "trans"])
+@pytest.mark.parametrize("batch", [3, 200])
+def test_downwelling_kernel_matches_plain(device, batch, want_trans,
+                                          alpha_is_mid):
+    """K3 on the chords K2 would compute, with the frequencies as a device
+    tensor: tb to 5e-3 K and trans_level to 1e-5 of its plain version, and
+    the same as K2 on the same paths."""
+    prof = _levels(batch, 180, device)
+    f = _grid(37, device)
+    alpha = absorption_spectral(f, prof["p"], prof["t"], prof["rho"],
+                                prof["lwc"])
+    if alpha_is_mid:
+        alpha = (0.5 * (alpha[:, :-1] + alpha[:, 1:])).contiguous()
+    n = geometry.refractive_index(prof["p"], prof["t"],
+                                  thermo.rho_to_e(prof["rho"], prof["t"]))
+    ds = torch.stack([geometry.slant_path_lengths_lb(
+        prof["z"], prof["p"], prof["t"],
+        thermo.rho_to_e(prof["rho"], prof["t"]), el) for el in ELEVS])
+    args = (f, alpha, ds, prof["t"], alpha_is_mid, want_trans)
+    before = downwelling_lb.launches
+    got = downwelling_lb(*args)
+    assert downwelling_lb.launches == before + 1
+    want = downwelling_lb_reference(*args)
+    k2 = forward_lb(f.tolist(), ELEVS, alpha, prof["z"], n, prof["t"],
+                    alpha_is_mid, want_trans)
+    torch.cuda.synchronize()
+    assert set(got) == set(want) == set(k2)
+    assert got["tb"].shape == (len(ELEVS), 37, batch)
+    assert float((got["tb"] - want["tb"]).abs().max()) <= 5e-3
+    assert float((got["tb"] - k2["tb"]).abs().max()) <= 5e-3
+    torch.testing.assert_close(got["tau_total"], want["tau_total"],
+                               rtol=1e-4, atol=0)
+    if want_trans:
+        assert float((got["trans_level"] - want["trans_level"])
+                     .abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_downwelling_wrapper_refuses_what_the_kernel_does_not_take(device):
+    prof = _levels(4, 20, device)
+    alpha = absorption_lb(FREQS, prof["p"], prof["t"], prof["rho"],
+                          prof["lwc"])
+    ds = torch.ones((2, 19, 4), device=device)
+    with pytest.raises(TypeError):
+        downwelling_lb(FREQS, alpha.double(), ds, prof["t"])
+    with pytest.raises(ValueError):
+        downwelling_lb(FREQS, alpha, ds[:, 1:], prof["t"])
+    with pytest.raises(ValueError):
+        downwelling_lb(FREQS[:3], alpha, ds, prof["t"])
+    with pytest.raises(ValueError):
+        downwelling_lb(torch.tensor(FREQS, dtype=torch.float64,
+                                    device=device), alpha, ds, prof["t"])
+
+
+@pytest.mark.cuda
+def test_spectral_path_launches_both_kernels_per_chunk(device):
+    """forward_spectral launches K6 and K3 once per chunk and agrees with
+    the plain path on the card to 1e-2 K; float64 with kernels raises."""
+    profiles = lbl.demo_batch(5, 180, device=device)
+    f = torch.linspace(20.0, 64.0, 1000)
+    before = (absorption_spectral.launches, downwelling_lb.launches)
+    got = spectral.forward_spectral(profiles, f, (90.0, 30.0), "R24",
+                                    freq_chunk=300)
+    assert (absorption_spectral.launches, downwelling_lb.launches) == \
+        (before[0] + 4, before[1] + 4)
+    want = spectral.forward_spectral(profiles, f, (90.0, 30.0), "R24",
+                                     freq_chunk=300, use_kernels=False)
+    assert got["tb"].shape == (5, 2, 1000)
+    assert float((got["tb"] - want["tb"]).abs().max()) <= 1e-2
+    torch.testing.assert_close(got["tau_total"], want["tau_total"],
+                               rtol=1e-4, atol=0)
+    with pytest.raises(ValueError, match="float32 only"):
+        spectral.forward_spectral({k: v.double() for k, v in
+                                   profiles.items()}, f)

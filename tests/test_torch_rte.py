@@ -271,3 +271,83 @@ def test_upwelling_opaque_limit():
     up = rte.upwelling_tb(alpha, ds, t, f, t_surface=torch.tensor(
         300.0, dtype=torch.float64))
     assert abs(float(up["tb"][0]) - 250.0) < 1e-6
+
+
+@pytest.fixture(scope="module")
+def k3_inputs():
+    """The shape of the JAX package's fused-RTE test: F=5, L=60, B=128,
+    E=3, float32."""
+    rng = np.random.default_rng(0)
+    nf, n_lev, batch, n_el = 5, 60, 128, 3
+    return {"alpha": np.abs(rng.normal(0.05, 0.05, (nf, n_lev, batch)))
+            .astype("f4"),
+            "ds": np.abs(rng.normal(0.5, 0.1, (n_el, n_lev - 1, batch)))
+            .astype("f4"),
+            "t": (250 + 40 * rng.random((n_lev, batch))).astype("f4"),
+            "freqs": tuple(np.linspace(20.0, 60.0, nf).tolist())}
+
+
+def test_downwelling_lb_matches_jax_fused_kernel(k3_inputs):
+    """K3's wrapper (its plain version on the CPU) against the JAX K3 in
+    interpret mode, whose scan is a bf16 hi/lo matrix product: 2e-3 K."""
+    from mwr_fast_forward_operators_and_lbls_tpu.ops.pallas.rte_kernel import (
+        downwelling_lb_fused)
+    a, ds, t, freqs = (k3_inputs[k] for k in ("alpha", "ds", "t", "freqs"))
+    want = downwelling_lb_fused(freqs, a, ds, t)
+    got = k2.downwelling_lb(freqs, *(torch.from_numpy(v) for v in (a, ds, t)))
+    assert k2.downwelling_lb.launches == 0
+    assert set(got) == {"tb", "tau_total", "t_mr"}
+    for k in got:
+        assert got[k].shape == (3, 5, 128)
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=2e-3, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype_name,atol", [("float64", 1e-9),
+                                             ("float32", 5e-4)])
+@pytest.mark.parametrize("alpha_is_mid", [False, True], ids=["level", "mid"])
+def test_downwelling_lb_matches_jax_xla(k3_inputs, dtype_name, atol,
+                                        alpha_is_mid):
+    """K3's plain version against JAX's downwelling_tb_lb_multi (or
+    ..._from_alpha_mid) on the same inputs: 1e-9 K in float64; in float32
+    5e-4 K, since each library's float32 TB lies 2-3e-4 K from its float64
+    value at this shape."""
+    tdt, ndt = DTYPES[dtype_name]
+    a, ds, t = (k3_inputs[k].astype(ndt) for k in ("alpha", "ds", "t"))
+    if alpha_is_mid:
+        a = (0.5 * (a[:, :-1] + a[:, 1:])).astype(ndt)
+    f = np.asarray(k3_inputs["freqs"], ndt)
+    with _jax_x64(dtype_name):
+        fn = (jrte.downwelling_tb_lb_from_alpha_mid if alpha_is_mid
+              else jrte.downwelling_tb_lb_multi)
+        want = {k: np.asarray(v) for k, v in fn(a, ds, t, f).items()}
+    got = k2.downwelling_lb(k3_inputs["freqs"],
+                            *(torch.from_numpy(v) for v in (a, ds, t)),
+                            alpha_is_mid=alpha_is_mid, want_trans_level=True)
+    assert set(got) == set(want) and got["tb"].dtype == tdt
+    for k in ("tb", "t_mr"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=0,
+                                   atol=atol, err_msg=k)
+    np.testing.assert_allclose(got["tau_total"].numpy(), want["tau_total"],
+                               rtol=1e-12 if ndt == np.float64 else 2e-6)
+    np.testing.assert_allclose(got["trans_level"].numpy(),
+                               want["trans_level"],
+                               atol=1e-12 if ndt == np.float64 else 1e-6)
+
+
+def test_downwelling_lb_reference_is_forward_lb_on_its_chords(levels):
+    """K3's plain version on the chords of K2's plain version gives K2's
+    result: K3 is K2 with the slant paths as input."""
+    alpha = torch.from_numpy(levels["alpha"])
+    z, t = (torch.from_numpy(levels[k]) for k in ("z", "t"))
+    n = geometry.refractive_index(*(torch.from_numpy(levels[k])
+                                    for k in ("p", "t", "e")))
+    ds = torch.stack([geometry.chord_lengths(z, n, c) for c in
+                      torch.cos(torch.deg2rad(torch.tensor(
+                          ELEVS, dtype=torch.float64)))])
+    want = k2.forward_lb_reference(FREQS, ELEVS, alpha, z, n, t,
+                                   want_trans_level=True)
+    got = k2.downwelling_lb_reference(torch.tensor(FREQS, dtype=torch.float64),
+                                      alpha, ds, t, want_trans_level=True)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-14, atol=1e-12)
