@@ -2,11 +2,11 @@
 ground-based microwave radiative-transfer framework.
 
 The JAX package `mwr_fast_forward_operators_and_lbls_tpu` beside it is the
-reference.  This package imports torch, numpy and scipy, never jax; it reads
-the JAX package's spectroscopy tables by file path (see `constants`).  Its
-subpackages mirror the JAX package's layout.  The line-by-line forward
-operator runs on CUDA through two hand-written kernels under `csrc/`
-(absorption and slant-path RTE), built with nvcc at first use.
+reference.  This package imports torch, numpy and scipy, never jax, and
+nothing of the JAX package: it keeps its own copy of the spectroscopy tables
+(see `constants`).  Its subpackages mirror the JAX package's layout.  The
+operators run on CUDA through hand-written kernels under `csrc/`, built with
+nvcc at first use.
 """
 
 __version__ = "0.1.0"

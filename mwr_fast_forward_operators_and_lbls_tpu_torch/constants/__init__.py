@@ -1,46 +1,12 @@
-"""Spectroscopy, instrument and climatology tables, shared with the JAX
-package.
+"""Spectroscopy, instrument and climatology tables.
 
-The six table modules of the JAX package (`physics`, `hatpro`, `h2o_lines`,
-`o2_lines`, `o3_lines`, `afgl`) import only numpy and dataclasses.  They are
-loaded here by file path, so the tables have one source and importing the port
-never runs the JAX package's `__init__` (which imports jax).  Each file is
-registered as `<this package>.<name>` before it executes, which is what the
-dataclass machinery needs to resolve its own module.
+The six table modules (`physics`, `hatpro`, `h2o_lines`, `o2_lines`,
+`o3_lines`, `afgl`) import only numpy and dataclasses.  They are this
+package's own copy of the tables; `tests/test_torch_imports.py` holds them,
+number for number, against the tables of the JAX package.
 """
 
-import importlib.util
-import pathlib
-import sys
-
-_TABLE_DIR = (pathlib.Path(__file__).resolve().parents[2]
-              / "mwr_fast_forward_operators_and_lbls_tpu" / "constants")
-
-
-def _load(name: str):
-    qualified = f"{__name__}.{name}"
-    if qualified in sys.modules:
-        return sys.modules[qualified]
-    spec = importlib.util.spec_from_file_location(qualified,
-                                                  _TABLE_DIR / f"{name}.py")
-    if spec is None:
-        raise ImportError(f"no table module {name!r} under {_TABLE_DIR}")
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[qualified] = module
-    try:
-        spec.loader.exec_module(module)
-    except BaseException:
-        del sys.modules[qualified]
-        raise
-    return module
-
-
-physics = _load("physics")
-hatpro = _load("hatpro")
-h2o_lines = _load("h2o_lines")
-o2_lines = _load("o2_lines")
-o3_lines = _load("o3_lines")
-afgl = _load("afgl")
+from . import afgl, h2o_lines, hatpro, o2_lines, o3_lines, physics
 
 H2O_MODELS = h2o_lines.H2O_MODELS
 ZENITH_SWEEP_MODELS = h2o_lines.ZENITH_SWEEP_MODELS

@@ -20,6 +20,12 @@ direct Planck (t) and refraction-geometry (t, rho, p) terms.  On CUDA float32
 profiles with wrt within {t, rho, lwc} it runs the kernels: K4 gives alpha
 and both tangent fields in one dual-number pass, K5 the adjoint with the
 assembly folded in.
+
+The fast operator (`models/fast.py`) has the same structure with layer-mean
+extinction in place of level absorption: `kmatrix_fast_single` and
+`kmatrix_fast_batch` differentiate it with `torch.func.jacrev`;
+`kmatrix_fast_adjoint_batch` (and `..._single`) is its closed form, which the
+retrieval calls once per Gauss-Newton step.
 """
 
 import functools
@@ -27,7 +33,7 @@ import functools
 import torch
 
 from ..constants import physics as phys
-from ..ops import geometry, thermo
+from ..ops import geometry, rte, thermo
 from ..ops.absorption import liquid_absorption
 from ..ops.tensors import constant_vector
 from ..ops.cuda.absorption import (absorption_partials_lb,
@@ -35,6 +41,7 @@ from ..ops.cuda.absorption import (absorption_partials_lb,
 from ..ops.cuda.adjoint import (kmatrix_assembled_lb,
                                 kmatrix_assembled_reference,
                                 kmatrix_assembled_rho_lwc_lb)
+from . import fast as fast_mod
 from . import lbl
 from .lbl import LBLConfig
 
@@ -212,3 +219,116 @@ def kmatrix_ppmv_from_rho(k_rho, p_hpa, t_k):
     de_drho = thermo.rho_to_e(torch.ones_like(p_hpa), t_k)  # [hPa per g/m^3]
     dppmv_drho = 1e6 * de_drho / p_hpa
     return k_rho / dppmv_drho[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# K-matrix of the fast operator
+# ---------------------------------------------------------------------------
+
+def kmatrix_fast_single(params, z_m, p_hpa, t_k, rho_gm3, lwc_gm3,
+                        elevation_deg, config=None,
+                        wrt=("t", "rho", "lwc")):
+    """K-matrix of the fast operator for one profile and elevation, by
+    `torch.func.jacrev` through the feature map, the regression product, the
+    slant geometry and the RTE.  Returns {name: (C, L)}."""
+    config = config or fast_mod.FastConfig()
+    args = {"p": p_hpa, "t": t_k, "rho": rho_gm3, "lwc": lwc_gm3}
+
+    def tb_of(name, value):
+        merged = {**args, name: value}
+        return fast_mod.fast_forward_single(
+            params, z_m, merged["p"], merged["t"], merged["rho"],
+            merged["lwc"], elevation_deg, config)["tb"]
+
+    return {name: torch.func.jacrev(functools.partial(tb_of, name))(
+        args[name]) for name in wrt}
+
+
+def kmatrix_fast_batch(params, profiles: dict, config=None,
+                       wrt=("t", "rho", "lwc")):
+    """Batched `kmatrix_fast_single`: dict of (B, L) profiles ->
+    {name: (B, E, C, L)}, vmapped over profiles and elevations."""
+    config = config or fast_mod.FastConfig()
+    a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
+    elevs = constant_vector(config.elevations_deg, a["t"].dtype,
+                            a["t"].device)
+
+    def one(z, p, t, rho, lwc):
+        return torch.func.vmap(lambda el: kmatrix_fast_single(
+            params, z, p, t, rho, lwc, el, config, wrt))(elevs)
+
+    return torch.func.vmap(one)(*(a[k] for k in ("z", "p", "t", "rho",
+                                                 "lwc")))
+
+
+def _spread(a):
+    """Layer field (..., K) -> level field (..., K + 1): each level takes
+    half of the layers around it, as x_mid = (x_l + x_{l+1}) / 2."""
+    zeros = torch.zeros_like(a[..., :1])
+    return 0.5 * (torch.cat([a, zeros], -1) + torch.cat([zeros, a], -1))
+
+
+def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
+                               wrt=("t", "rho")):
+    """Closed-form fast-operator K for a batch: every (elevation, channel)
+    row of every profile in about three forward-shaped passes.
+
+      1. The regression extinction is layer-local, so d(alpha_mid)/d(T_mid,
+         rho_mid) is diagonal over layers; `fast.extinction_partials` gives
+         it in closed form (the features are monomials times hats of p).
+      2. The RTE adjoint is closed form (`rte.downwelling_tb_adjoint_mid`):
+         dTB/d(alpha_mid), the direct Planck term and dTB/d(ds).
+      3. The refraction geometry's Jacobian is tridiagonal plus a rank-one
+         Snell-invariant column (`geometry.slant_path_sensitivities`).
+
+    profiles: dict of (B, L) tensors, in their own dtype and on their own
+    device.  Returns {name: (B, E, C, L)} for name in `wrt`, a subset of
+    {"t", "rho"}.
+    """
+    config = config or fast_mod.FastConfig()
+    a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
+    z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
+    f = constant_vector(config.freqs_ghz, t.dtype, t.device)
+    elevs = constant_vector(config.elevations_deg, t.dtype, t.device)
+
+    e_hpa = thermo.rho_to_e(rho, t)
+    n_lev = geometry.refractive_index(p, t, e_hpa)                # (B, L)
+    cos_el = torch.cos(torch.deg2rad(elevs))
+    ds = torch.movedim(geometry.chord_lengths(
+        z.T[:, :, None], n_lev.T[:, :, None], cos_el), 0, -1)     # (B, E, K)
+
+    alpha_mid, d_tm, d_rm = fast_mod.extinction_partials(params, p, t, rho,
+                                                         lwc)     # (B, K, C)
+    g_mid, g_t, g_ds = rte.downwelling_tb_adjoint_mid(
+        alpha_mid.transpose(1, 2), ds, t, f)                      # (B,E,C,.)
+
+    out = {}
+    if "t" in wrt:
+        out["t"] = _spread(g_mid * d_tm.transpose(1, 2)[:, None]) + g_t
+    if "rho" in wrt:
+        out["rho"] = _spread(g_mid * d_rm.transpose(1, 2)[:, None])
+
+    # ds depends on (t, rho) through refraction; e = rho T Rv / 1e5
+    _, dn_dt, dn_de = geometry.refractive_index_partials(p, t, e_hpa)
+    dn = {"t": dn_dt + dn_de * thermo.rho_to_e(rho, 1.0),
+          "rho": dn_de * thermo.rho_to_e(1.0, t)}                 # (B, L)
+    dds_dnl, dds_dk = geometry.slant_path_sensitivities(
+        z[:, None], n_lev[:, None], elevs)                        # (B, E, K)
+    c = _spread(g_ds * dds_dnl[:, :, None])                       # (B,E,C,L)
+    s_k = torch.sum(g_ds * dds_dk[:, :, None], dim=-1)            # (B, E, C)
+    r0cos = (phys.EARTH_RADIUS + z[:, :1]) * cos_el[None]         # (B, E)
+    for name in out:
+        g = c * dn[name][:, None, None, :]
+        g[..., 0] += s_k * (r0cos * dn[name][:, :1])[:, :, None]
+        out[name] = out[name] + g
+    return out
+
+
+def kmatrix_fast_adjoint_single(params, z_m, p_hpa, t_k, rho_gm3, lwc_gm3,
+                                config=None, wrt=("t", "rho")):
+    """`kmatrix_fast_adjoint_batch` for one profile of (L,) tensors.
+    Returns {name: (E, C, L)}."""
+    profile = {"z": z_m[None], "p": p_hpa[None], "t": t_k[None],
+               "rho": rho_gm3[None], "lwc": lwc_gm3[None]}
+    out = kmatrix_fast_adjoint_batch(params, profile, config, wrt)
+    return {name: k[0] for name, k in out.items()}

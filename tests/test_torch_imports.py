@@ -1,11 +1,14 @@
-"""The torch port stands alone: it imports no jax and reads the JAX package's
-spectroscopy tables by file path, number for number."""
+"""The torch port stands alone: it imports no jax and nothing of the JAX
+package, and its own copy of the spectroscopy tables equals the JAX package's
+number for number."""
 
 import ast
 import ctypes
 import dataclasses
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 
@@ -47,15 +50,57 @@ def test_port_sources_import_no_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (f"import sys, {port.__name__} as m; "
-            f"from {port.__name__}.models import jacobians, lbl, spectral; "
+            f"from {port.__name__}.models import fast, jacobians, lbl, "
+            f"retrieval, spectral; "
             f"from {port.__name__}.ops import geometry, rte, thermo; "
             f"from {port.__name__}.ops.cuda import _build, absorption, "
-            f"adjoint, rte, spectral; "
+            f"adjoint, chain, rte, spectral; "
+            f"from {port.__name__}.parallel import profiling; "
             f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             f"('jax', 'jaxlib', '{JAX_PKG}')); "
             f"print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+TABLE_MODULES = ("physics", "hatpro", "h2o_lines", "o2_lines", "o3_lines",
+                 "afgl")
+
+
+@pytest.mark.parametrize("name", TABLE_MODULES)
+def test_table_modules_are_the_ports_own_files(name):
+    module = getattr(tconst, name)
+    path = pathlib.Path(module.__file__).resolve()
+    assert path == (PORT_DIR / "constants" / f"{name}.py").resolve()
+    assert module.__name__ == f"{port.__name__}.constants.{name}"
+
+
+def test_port_imports_from_a_directory_that_holds_nothing_else(tmp_path):
+    """A copy of the port's package alone, in an empty directory, imports
+    and computes: it opens no file of the JAX package."""
+    shutil.copytree(PORT_DIR, tmp_path / port.__name__,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = (f"import sys, pathlib, torch, {port.__name__} as m; "
+            f"from {port.__name__}.constants import H2O_MODELS, hatpro; "
+            f"from {port.__name__}.models import fast, lbl, retrieval, "
+            f"jacobians, spectral; "
+            f"from {port.__name__}.parallel import profiling; "
+            f"here = pathlib.Path.cwd().resolve(); "
+            f"assert pathlib.Path(m.__file__).resolve().is_relative_to(here);"
+            f" assert pathlib.Path(hatpro.__file__).resolve()"
+            f".is_relative_to(here); "
+            f"tb = lbl.forward_batch(lbl.demo_batch(1, 24), "
+            f"lbl.LBLConfig(outputs=('tb',)))['tb']; "
+            f"assert tb.shape == (1, 10, 14) and bool(torch.isfinite(tb)"
+            f".all()); "
+            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"('jax', 'jaxlib', '{JAX_PKG}')); "
+            f"print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=180,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "PYTHONPATH"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
@@ -125,6 +170,6 @@ def test_every_c_entry_point_has_its_ctypes_signature():
     assert set(entries) == set(_build.SIGNATURES)
     assert {"mwr_absorption_lb", "mwr_absorption_tangents_lb",
             "mwr_forward_lb", "mwr_kmatrix_lb", "mwr_downwelling_lb",
-            "mwr_absorption_spectral"} <= set(entries)
+            "mwr_absorption_spectral", "mwr_chain"} <= set(entries)
     for name, params in entries.items():
         assert _build.SIGNATURES[name] == [ctype[p] for p in params], name

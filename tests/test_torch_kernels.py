@@ -11,8 +11,10 @@ import torch
 
 from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
     H2O_MODELS)
-from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (jacobians,
+from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (fast,
+                                                                  jacobians,
                                                                   lbl,
+                                                                  retrieval,
                                                                   spectral)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import geometry, thermo
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
@@ -24,10 +26,13 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
     kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
     kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
+    OPS as CHAIN_OPS, chain, chain_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
     downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (
     absorption_spectral, absorption_spectral_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import profiling
 
 torch.set_num_threads(1)
 
@@ -403,3 +408,141 @@ def test_spectral_path_launches_both_kernels_per_chunk(device):
     with pytest.raises(ValueError, match="float32 only"):
         spectral.forward_spectral({k: v.double() for k, v in
                                    profiles.items()}, f)
+
+
+def _chain_inputs(device, n=100_003):
+    """Half uniform in [0, 1), half log-uniform in [1e-9, 1e-7), where the
+    fma chain's 1e-9 a step changes the value many times over."""
+    gen = torch.Generator(device).manual_seed(5)
+    small = 10.0 ** (-9.0 + 2.0 * torch.rand(n - n // 2, device=device,
+                                              generator=gen))
+    return torch.cat([torch.rand(n // 2, device=device, generator=gen),
+                      small])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("double_k", [False, True], ids=["k", "2k"])
+@pytest.mark.parametrize("op", sorted(CHAIN_OPS))
+def test_chain_kernel_matches_plain(device, op, double_k):
+    x = _chain_inputs(device)
+    k = CHAIN_OPS[op][1] * (2 if double_k else 1)
+    before = chain.launches
+    got = chain(x, op, k)
+    assert chain.launches == before + 1
+    want = chain_reference(x, op, k)
+    want64 = chain_reference(x.double(), op, k)
+    torch.cuda.synchronize()
+    # Against the float64 recurrence on the same float32 constants, each of
+    # the fma chain's k steps, the scaling and the seven additions of the
+    # sum rounds once, at most 2^-24 relative, and all terms are positive;
+    # the plain version rounds twice a step.  One step more or less moves
+    # the small half of the inputs by over 1e-3.  The div and exp chains
+    # contract to a fixed point: their values hold the primitive's form,
+    # not k; the approximate intrinsics are good to ~1e-6.
+    u = 2.0 ** -24
+    rtol64 = {"fma": (k + 8) * u, "div_fast": 1e-4, "exp_fast": 1e-4}.get(
+        op, 1e-6)
+    rtol = {"fma": (3 * k + 16) * u}.get(op, rtol64)
+    torch.testing.assert_close(got.double(), want64, rtol=rtol64, atol=0)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+def test_fma_chain_kernel_applies_k_steps(device):
+    """out(2k) - out(k) on the small inputs is 8 k b to 1e-4: a chain cut
+    short by one step of 96 would be off by 1e-2."""
+    x = _chain_inputs(device)
+    small = x < 1e-7
+    k = CHAIN_OPS["fma"][1]
+    got = (chain(x, "fma", 2 * k).double() - chain(x, "fma", k).double())
+    want = (chain_reference(x.double(), "fma", 2 * k)
+            - chain_reference(x.double(), "fma", k))
+    torch.testing.assert_close(got[small], want[small], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_refuses_what_it_was_not_built_for(device):
+    x = torch.rand(1000, device=device)
+    with pytest.raises(ValueError, match="built for k"):
+        chain(x, "fma", 7)
+    with pytest.raises(TypeError, match="float32"):
+        chain(x.double(), "fma")
+    with pytest.raises(ValueError, match="out of range"):
+        chain(x, "fma", threads=100)
+    y = chain(x, "div", threads=32)
+    torch.testing.assert_close(y, chain_reference(x, "div"), rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_measure_peaks_launches_the_chain_kernel(device):
+    before = chain.launches
+    peaks = profiling.measure_peaks(device)
+    assert chain.launches > before
+    assert set(peaks) == {"fma", "div", "exp", "hbm"}
+    for name, rate in peaks.items():
+        assert 0.02 * profiling.DEFAULT_PEAKS[name] < rate \
+            <= 1.05 * profiling.DEFAULT_PEAKS[name], name
+    seconds = profiling.device_time(lambda a: a * 2.0,
+                                    (torch.ones(1 << 20, device=device),))
+    assert 0.0 < seconds < 1e-2
+
+
+@pytest.mark.cuda
+def test_fast_serving_path_launches_the_rte_kernel_once(device):
+    profiles = lbl.demo_batch(130, 180, device=device)
+    cfg = fast.FastConfig()
+    before = absorption_lb.launches
+    params = fast.fit_closed_form({k: v[:32] for k, v in profiles.items()},
+                                  cfg)
+    assert absorption_lb.launches == before + 1
+    assert params["w"].is_cuda and params["w"].dtype == torch.float32
+    before = (forward_lb.launches, absorption_lb.launches)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fast.fast_forward_batch(params, profiles, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert (forward_lb.launches, absorption_lb.launches) == \
+        (before[0] + 1, before[1])
+    want = fast.fast_forward_batch(
+        params, profiles, dataclasses.replace(cfg, use_kernels=False))
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    assert got["trans_level"].shape == (130, 10, 14, 180)
+    assert float((got["tb"] - want["tb"]).abs().max()) <= 1e-2
+    assert float((got["trans_level"] - want["trans_level"]).abs().max()) \
+        <= 1e-5
+    teacher = lbl.forward_batch(profiles, lbl.LBLConfig(outputs=("tb",)))
+    assert float((got["tb"] - teacher["tb"]).pow(2).mean().sqrt()) < 0.05
+    with pytest.raises(ValueError, match="float32 only"):
+        fast.fast_forward_batch(params, profiles,
+                                dataclasses.replace(cfg, dtype="float64"))
+
+
+@pytest.mark.cuda
+def test_retrieval_on_the_card_runs_the_rte_kernel_each_step(device):
+    profiles = lbl.demo_batch(8, 60, device=device)
+    cfg = fast.FastConfig(outputs=("tb",))
+    params = fast.fit_closed_form(profiles, cfg)
+    tb_obs = fast.fast_forward_batch(params, profiles, cfg)["tb"]
+    ocfg = retrieval.OEMConfig(n_iter=3)
+    args = (params, tb_obs, profiles["z"], profiles["p"],
+            profiles["t"] + 1.5, profiles["rho"] * 0.8)
+    before = forward_lb.launches
+    got = retrieval.retrieve_batch(*args, ocfg, profiles["lwc"])
+    assert forward_lb.launches == before + ocfg.n_iter + 1
+    # the same retrieval on CPU copies takes the plain forward
+    want = retrieval.retrieve_batch(
+        *({k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+          else a.cpu() for a in args), ocfg, profiles["lwc"].cpu())
+    torch.cuda.synchronize()
+    assert float((got["t"].cpu() - want["t"]).abs().max()) <= 0.05
+    assert float((got["tb_fit"] - tb_obs).abs().mean()) < 0.5
+    k_closed = jacobians.kmatrix_fast_adjoint_batch(params, profiles, cfg)
+    k_auto = jacobians.kmatrix_fast_batch(params, profiles, cfg,
+                                          wrt=("t", "rho"))
+    for name in ("t", "rho"):
+        assert float((k_closed[name] - k_auto[name]).abs().max()) <= \
+            2e-3 * float(k_auto[name].abs().max())
