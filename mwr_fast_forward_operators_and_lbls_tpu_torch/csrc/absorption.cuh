@@ -44,12 +44,10 @@
 // scalars, then per-line columns (each `n_lines` floats long) for H2O, O2 and
 // O3, then the 16 Gauss-Laguerre nodes and 16 weights of the qSD shape.
 //
-// This header holds the body; absorption.cu instantiates it on float (K1),
-// absorption_tangents.cu on Dual (K4) and absorption_spectral.cu on float
-// over a 2-D grid of frequency tiles (K6), so the three compile in parallel.
-// The grid's y axis is the frequency tile: block (x, y) evaluates the F
-// frequencies freqs[y F .. y F + F) for its points and writes rows y F ..
-// y F + F of the (frequency, point) output.  K1 and K4 launch one tile.
+// This header holds the body; absorption.cu instantiates it on float (K1)
+// and absorption_tangents.cu on Dual (K4), so the two compile in parallel.
+// absorption_spectral.cu (K6) shares the table layout below and has a body
+// of its own.
 
 #pragma once
 
@@ -181,12 +179,11 @@ __global__ void absorption_kernel(const float* __restrict__ p,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  // this block's frequency tile; every thread of a block shares it, so the
-  // Clough branch below stays warp-uniform
-  const size_t tile_row = (size_t)blockIdx.y * F;
+  // every thread evaluates the same channels, so the Clough branch below
+  // stays warp-uniform
   float f[F];
 #pragma unroll
-  for (int c = 0; c < F; ++c) f[c] = freqs[tile_row + c];
+  for (int c = 0; c < F; ++c) f[c] = freqs[c];
 
   const float pp = p[i];
   const float ww = lwc[i];
@@ -364,38 +361,35 @@ __global__ void absorption_kernel(const float* __restrict__ p,
     if constexpr (!kTangents) {
       if (o3 != nullptr) alpha += o3_scale * acc_o3[c];
     }
-    store<V>(alpha, (tile_row + c) * n + i, out, out_dt, out_dr);
+    store<V>(alpha, (size_t)c * n + i, out, out_dt, out_dr);
   }
 }
 
 template <int F, typename V>
 void launch(const float* p, const float* t, const float* rho, const float* lwc,
             const float* o3, const float* freqs, const float* tables,
-            int table_size, Layout lay, int n, int tiles, float* out,
-            float* out_dt, float* out_dr, cudaStream_t stream) {
+            int table_size, Layout lay, int n, float* out, float* out_dt,
+            float* out_dr, cudaStream_t stream) {
   constexpr int kThreads = std::is_same<V, Dual>::value ? 128 : 256;
-  const dim3 grid((n + kThreads - 1) / kThreads, tiles);
-  absorption_kernel<F, V><<<grid, kThreads, table_size * sizeof(float),
-                            stream>>>(p, t, rho, lwc, o3, freqs, tables,
-                                      table_size, lay, n, out, out_dt, out_dr);
+  absorption_kernel<F, V><<<(n + kThreads - 1) / kThreads, kThreads,
+                            table_size * sizeof(float), stream>>>(
+      p, t, rho, lwc, o3, freqs, tables, table_size, lay, n, out, out_dt,
+      out_dr);
 }
 
-// Launch the body for `tiles` consecutive tiles of nf frequencies each
-// (1 <= tiles <= 65535, the limit of the grid's y axis).
+// Launch the body for the nf channels of `freqs`.
 template <typename V>
 int dispatch(int nf, const float* p, const float* t, const float* rho,
              const float* lwc, const float* o3, const float* freqs,
              const float* tables, int table_size, Layout lay, int n,
-             float* out, float* out_dt, float* out_dr, void* stream,
-             int tiles = 1) {
-  if (nf < 1 || nf > kMaxChannels || n < 1 || tiles < 1 || tiles > 65535)
-    return cudaErrorInvalidValue;
+             float* out, float* out_dt, float* out_dr, void* stream) {
+  if (nf < 1 || nf > kMaxChannels || n < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nf) {
 #define MWR_CASE(F_)                                                        \
   case F_:                                                                  \
     launch<F_, V>(p, t, rho, lwc, o3, freqs, tables, table_size, lay, n,    \
-                  tiles, out, out_dt, out_dr, s);                           \
+                  out, out_dt, out_dr, s);                                  \
     break;
     MWR_CASE(1) MWR_CASE(2) MWR_CASE(3) MWR_CASE(4) MWR_CASE(5) MWR_CASE(6)
     MWR_CASE(7) MWR_CASE(8) MWR_CASE(9) MWR_CASE(10) MWR_CASE(11)

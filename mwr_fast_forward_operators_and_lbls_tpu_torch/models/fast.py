@@ -33,7 +33,8 @@ from ..constants import hatpro
 from ..ops import geometry, rte, thermo
 from ..ops.cuda.absorption import absorption_lb, absorption_lb_reference
 from ..ops.cuda.rte import forward_lb
-from ..ops.tensors import constant_vector
+from ..ops.tensors import (constant_vector, input_device,
+                           resolve_device)  # noqa: F401 (re-exported)
 from . import lbl
 
 N_BASE_FEATURES = 18
@@ -56,17 +57,6 @@ class FastConfig:
     # on any device.
     use_kernels: bool = True
     outputs: tuple = ("tb", "tau_total", "t_mr", "trans_level")
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the CUDA card when it is None.  Raises RuntimeError when
-    None is given and there is no card: the CPU is used only on request."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to run on the "
-                           "CPU")
-    return torch.device("cuda")
 
 
 @contextlib.contextmanager
@@ -232,8 +222,9 @@ def fast_forward_single(params, z_m, p_hpa, t_k, rho_gm3, lwc_gm3,
 
 def batch_arrays(profiles: dict, dtype) -> dict:
     """z, p, t, rho, lwc as (B, L) tensors of `dtype` on the profiles'
-    device; lwc is zero when absent."""
-    device = torch.as_tensor(profiles["p"]).device
+    device (`input_device`: numpy arrays go to the card); lwc is zero when
+    absent."""
+    device = input_device(profiles["p"])
     out = {k: torch.as_tensor(profiles[k]).to(device=device, dtype=dtype)
            for k in ("z", "p", "t", "rho")}
     lwc = profiles.get("lwc")

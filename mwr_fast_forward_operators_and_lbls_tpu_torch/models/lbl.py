@@ -25,6 +25,7 @@ from ..ops.absorption import total_absorption
 from ..ops.cuda.absorption import (absorption_lb, absorption_lb_reference,
                                    line_tables)
 from ..ops.cuda.rte import forward_lb, forward_lb_reference
+from ..ops.tensors import input_device, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +91,11 @@ def _afgl_o3(z_m):
 
 def level_major_profiles(profiles: dict, config: LBLConfig) -> dict:
     """z, p, t, rho and lwc of (B, L) profiles as contiguous (L, B) tensors
-    of `config.dtype` on the profiles' device; lwc is zero when absent or
-    when `config.include_liquid` is off."""
+    of `config.dtype` on the profiles' device (`input_device`: tensors stay
+    where they are, numpy arrays go to the card); lwc is zero when absent
+    or when `config.include_liquid` is off."""
     dtype = getattr(torch, config.dtype)
-    device = torch.as_tensor(profiles["p"]).device
+    device = input_device(profiles["p"])
 
     def level_major(a):
         return torch.as_tensor(a).to(device=device, dtype=dtype).T.contiguous()
@@ -112,7 +114,9 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
 
     profiles: "z" [m], "p" [hPa], "t" [K], "rho" [g/m^3], optionally "lwc"
       [g/m^3] and "o3_ppmv"; each (B, L), levels ground -> top, all on one
-      device.  numpy arrays are taken as CPU tensors.
+      device.  Tensors are used where they lie (CPU tensors run the plain
+      path on the CPU); numpy arrays are copied to the CUDA card, and raise
+      RuntimeError where there is none.
     tables: the packed line table of the absorption kernel for this model
       (`LBLOperator` holds it as a buffer); built and cached when None.
 
@@ -120,7 +124,7 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
     (B, E, F) and trans_level (B, E, F, L).
     """
     dtype = getattr(torch, config.dtype)
-    device = torch.as_tensor(profiles["p"]).device
+    device = input_device(profiles["p"])
     if config.use_kernels and device.type == "cuda" and dtype != torch.float32:
         raise ValueError(f"the CUDA kernels are float32 only; got dtype "
                          f"{config.dtype!r} (use_kernels=False runs the plain "
@@ -163,14 +167,14 @@ def forward_all_models(profiles: dict, config: LBLConfig = LBLConfig(),
 class LBLOperator(nn.Module):
     """The LBL forward operator as a module.  Its parameters are the
     spectroscopy tables, held as the buffer `tables` in the packed layout
-    the absorption kernel reads."""
+    the absorption kernel reads, on `device` (the CUDA card when None;
+    RuntimeError where there is none: `device="cpu"` asks for the CPU)."""
 
     def __init__(self, config: LBLConfig = LBLConfig(), device=None):
         super().__init__()
         self.config = config
         self.register_buffer("tables", line_tables(
-            config.model, config.include_o3,
-            torch.device(device or "cpu")).clone())
+            config.model, config.include_o3, resolve_device(device)).clone())
 
     def forward(self, profiles: dict) -> dict:
         tables = self.tables if self.tables.is_cuda else None
@@ -178,8 +182,10 @@ class LBLOperator(nn.Module):
 
 
 def demo_profile(n_levels: int = hatpro.N_LEVELS, seed: int = 0,
-                 device="cpu", dtype=torch.float32) -> dict:
-    """A physically plausible synthetic midlatitude profile (ground -> top).
+                 device=None, dtype=torch.float32) -> dict:
+    """A physically plausible synthetic midlatitude profile (ground -> top)
+    on `device`: the CUDA card when None (RuntimeError where there is none),
+    the CPU on `device="cpu"`.
 
     The numbers are those of the JAX package's `demo_profile` with the same
     seed: made in numpy, rounded to float32, then cast to `dtype`.
@@ -197,14 +203,17 @@ def demo_profile(n_levels: int = hatpro.N_LEVELS, seed: int = 0,
     rho = 216.679 * e / t
     lwc = np.zeros(n_levels)
     lwc[(z > 1000.0) & (z < 1600.0)] = 0.2
+    device = resolve_device(device)
     return {k: torch.as_tensor(v.astype(np.float32)).to(device=device,
                                                         dtype=dtype)
             for k, v in dict(z=z, p=p, t=t, rho=rho, lwc=lwc).items()}
 
 
 def demo_batch(batch: int, n_levels: int = hatpro.N_LEVELS, seed: int = 0,
-               device="cpu", dtype=torch.float32) -> dict:
-    """`batch` demo profiles with seeds seed, seed+1, ...; each (B, L)."""
+               device=None, dtype=torch.float32) -> dict:
+    """`batch` demo profiles with seeds seed, seed+1, ...; each (B, L), on
+    `device` as in `demo_profile`."""
+    device = resolve_device(device)
     profs = [demo_profile(n_levels, seed + i, "cpu", dtype)
              for i in range(batch)]
     return {k: torch.stack([q[k] for q in profs]).to(device)

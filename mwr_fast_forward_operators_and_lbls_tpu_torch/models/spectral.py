@@ -21,6 +21,7 @@ from ..ops import geometry, rte, thermo
 from ..ops.cuda.rte import downwelling_lb, downwelling_lb_reference
 from ..ops.cuda.spectral import (absorption_spectral,
                                  absorption_spectral_reference)
+from ..ops.tensors import input_device
 from .lbl import LBLConfig, level_major_profiles
 
 
@@ -63,7 +64,8 @@ def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
     """Monochromatic TB spectra: (B, L) profiles x (F,) grid -> (B, E, F).
 
     profiles: "z" [m], "p" [hPa], "t" [K], "rho" [g/m^3] and optionally
-      "lwc" [g/m^3], each (B, L), levels ground -> top, on one device; the
+      "lwc" [g/m^3], each (B, L), levels ground -> top, on one device
+      (tensors stay where they are, numpy arrays go to the CUDA card); the
       working dtype is theirs (float32 at least).
     f_ghz: the frequency grid [GHz], a sequence, numpy array or tensor; its
       values are rounded to float32, as in the JAX package.
@@ -74,9 +76,10 @@ def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
 
     Returns tb and tau_total, each (B, E, F).
     """
-    p0 = torch.as_tensor(profiles["p"])
-    dtype = torch.promote_types(p0.dtype, torch.float32)
-    if use_kernels and p0.device.type == "cuda" and dtype != torch.float32:
+    dtype = torch.promote_types(torch.as_tensor(profiles["p"]).dtype,
+                                torch.float32)
+    if (use_kernels and input_device(profiles["p"]).type == "cuda"
+            and dtype != torch.float32):
         raise ValueError(f"the CUDA kernels are float32 only; got {dtype} "
                          f"(use_kernels=False runs the plain torch path in "
                          f"any dtype)")

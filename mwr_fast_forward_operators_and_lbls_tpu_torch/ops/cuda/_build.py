@@ -40,9 +40,13 @@ SIGNATURES = {
     # freqs, alpha, ds, t, E, F, L, B, alpha_is_mid, hk_ghz, t_cosmic, tb,
     # tau, tmr, trans, stream
     "mwr_downwelling_lb": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,
-    # p, t, rho, lwc, freqs, nf, tables, table_size, n_h2o, n_o2, h2o_off,
-    # o2_off, gl_off, n, out, stream
-    "mwr_absorption_spectral": [_P] * 5 + [_I, _P] + [_I] * 7 + [_P] * 2,
+    # p, t, rho, lwc, freqs, nf, tables, n_h2o, n_o2, h2o_off, o2_off,
+    # gl_off, h2o_slots, n, lines, scratch, out, stream
+    "mwr_absorption_spectral": [_P] * 5 + [_I, _P] + [_I] * 8 + [_P] * 3,
+    # n_h2o, n_o2, h2o_slots
+    "mwr_absorption_spectral_resident_warps": [_I] * 3,
+    # L, alpha_is_mid
+    "mwr_downwelling_staged_resident_warps": [_I] * 2,
     # mode, freqs, alpha, da, da2, ds, t, dnl, dk, dn, r0cos, E, F, L, B,
     # hk_ghz, t_cosmic, out, out2, stream
     "mwr_kmatrix_lb": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P] * 3,

@@ -1,5 +1,5 @@
-"""RTE kernels K2 and K3 (two modes of `csrc/rte.cu`), their wrappers and
-plain versions.
+"""RTE kernels K2 and K3 (`csrc/rte.cu`), their wrappers and plain
+versions.
 
 `forward_lb` (K2) maps level absorption (F, L, B), heights, refractive
 indices and temperatures (L, B) to tb, tau_total, t_mr (E, F, B) and
@@ -157,6 +157,14 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
     layer-mean extinction when `alpha_is_mid`; ds_km (E, L-1, B) slant path
     lengths [km]; t (L, B) [K].  Returns tb, tau_total, t_mr (E, F, B) and,
     when `want_trans_level`, trans_level (E, F, L, B).
+
+    K3 has two bodies (`csrc/rte.cu::staged_takes` decides between them):
+    without trans_level, with B a multiple of 4, L up to 780 and
+    alpha's first element on a 16-byte boundary (any tensor that owns its
+    storage; a contiguous view that starts elsewhere may not be), alpha is
+    streamed through shared memory by 16-byte copies.  Every other call
+    takes the body K2 uses, at about twice the time.  Both raise when their
+    launch is refused.
     """
     if alpha.device.type == "cpu":
         return downwelling_lb_reference(freqs, alpha, ds_km, t, alpha_is_mid,
@@ -182,3 +190,13 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
 
 
 downwelling_lb.launches = 0
+
+
+def staged_resident_warps(n_levels: int, alpha_is_mid: bool = False) -> int:
+    """Warps of K3's staged body that the current CUDA device keeps resident
+    per SM at `n_levels` levels, from the occupancy calculator."""
+    warps = _build.library().mwr_downwelling_staged_resident_warps(
+        n_levels, int(alpha_is_mid))
+    if warps < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-warps}")
+    return warps

@@ -6,15 +6,27 @@ T, rho, LWC of any one shape to alpha (F, *shape) [Np/km], frequency-major:
 level-major (L, B) points give the (F, L, B) layout the RTE kernels read.
 On CPU tensors it runs `absorption_spectral_reference`; on CUDA tensors it
 launches K6 or raises.  There is no O3 term, as on the TPU.
+
+K6 is two passes.  The first computes, once per call, what depends on the
+point alone: `line_state` is its plain version and documents the layout.
+The second evaluates one merged rational per line and frequency from that
+state; `absorption_spectral_merged` follows its order of operations in
+plain torch (with IEEE divides), so the CPU tests can hold the arithmetic
+against float64.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ...constants import H2O_MODELS, O2_MODELS
-from ..absorption import total_absorption
+from ..absorption import (h2o_absorption, liquid_absorption, n2_absorption,
+                          o2_absorption, total_absorption)
+from ..absorption.h2o import _GL_W, _GL_X
 from . import _build
-from .absorption import check_points, line_tables, table_layout
+from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, check_points,
+                         line_tables, pack_tables, table_layout)
 
 # Bytes of one (frequency, point, line) intermediate of the plain version,
 # which runs in sub-chunks of frequency: a handful of them are live at once,
@@ -67,22 +79,218 @@ def absorption_spectral_reference(f_ghz, p, t, rho, lwc, model: str = "R24",
     return out
 
 
-def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
-                        f_range=None):
-    """Monochromatic absorption: frequencies f_ghz (F,) [GHz] and p [hPa],
-    T [K], rho [g/m^3], LWC [g/m^3] of one shape -> alpha (F, *shape)
-    [Np/km].
+def absorption_spectral_float64(f_ghz, p, t, rho, lwc, model: str = "R24"):
+    """The function on exactly the kernel's inputs, in float64: the points,
+    the grid and the line tables as the float32 numbers K6 reads (a line
+    centre rounds by up to 1.9 kHz at 60 GHz, which alone moves alpha by
+    some 6e-6 of a frequency's maximum where the lines are 30 MHz wide).
+    Differences from it are the arithmetic's."""
+    def rounded(tables):
+        kw = {}
+        for field in dataclasses.fields(tables):
+            v = getattr(tables, field.name)
+            if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+                kw[field.name] = v.astype(np.float32).astype(np.float64)
+            elif isinstance(v, float):
+                kw[field.name] = float(np.float32(v))
+        return dataclasses.replace(tables, **kw)
 
-    f_ghz is a sequence, a numpy array or a tensor; on the kernel path a
-    contiguous float32 tensor on the points' device is used as it is.
-    f_range = (fmin, fmax), when given, is checked against the frequencies:
-    ValueError if one lies outside it.  CPU tensors take the plain version.
-    CUDA tensors (float32, contiguous) launch K6 on the release's packed
-    `line_tables(model, False, device)`.
+    _check_model(model)
+    p, t, rho, lwc = (a.double()[None] for a in (p, t, rho, lwc))
+    f = torch.as_tensor(f_ghz, device=p.device).to(torch.float32).double()
+    f = f.reshape((-1,) + (1,) * (p.ndim - 1))
+    return (h2o_absorption(f, p, t, rho, rounded(H2O_MODELS[model]))
+            + o2_absorption(f, p, t, rho, rounded(O2_MODELS[model]))
+            + n2_absorption(f, p - rho * t / 217.0, t, variant=model)
+            + liquid_absorption(f, t, lwc))
+
+
+# ---- the state pass: what depends on the point alone ----------------------
+#
+# K6's first kernel writes `state` (n_state, N) float32, one row per slot
+# (keep in step with the enums of csrc/absorption_spectral.cu):
+#   rows 0..8, the scalars of STATE_SCALARS;
+#   then per H2O line 3 rows, wsq, sw, sb: the squared width, and the
+#     strength s h2o_scale / fl^2 times the width and times the Clough base;
+#     for a release with qSD lines 3 more, sn, c0, gamma2: that strength
+#     alone and the two parameters of the quadrature;
+#   then per O2 line 5 rows, dnu, c2, dfsq, k2, k3: the pressure shift,
+#     c = 2 (f0 + dnu), the squared width, and the two coefficients of the
+#     merged numerator k2 + q k3 (`absorption_spectral_merged`):
+#     k2 = s (dfg c^2 - 2 dfsq y c), k3 = s (2 dfg + y c) with s the
+#     strength over f0^2 and y the mixing coefficient.
+STATE_SCALARS = ("con_b", "k_nr", "dfnr2", "o2s", "n2k", "inv_fp", "e01",
+                 "e12", "wk")
+O2_SLOTS = 5
+
+
+def h2o_slots(model: str) -> int:
+    return 6 if H2O_MODELS[model].has_sd else 3
+
+
+def n_state(model: str) -> int:
+    """Rows of K6's per-point state for one release."""
+    return (len(STATE_SCALARS) + h2o_slots(model) * H2O_MODELS[model].fl.size
+            + O2_SLOTS * O2_MODELS[model].f.size)
+
+
+def line_state(p, t, rho, lwc, model: str = "R24") -> dict:
+    """Plain version of K6's state pass, in the inputs' dtype: {"scalars":
+    {name: (...)}, "h2o": {name: (..., n_h2o)}, "o2": {name: (..., n_o2)}}
+    for points of any one shape, from the packed table's numbers."""
+    lay = table_layout(model, False)
+    table = torch.as_tensor(pack_tables(model, False), dtype=p.dtype,
+                            device=p.device)
+    head = dict(zip(HEADER_FIELDS, table[:len(HEADER_FIELDS)]))
+    h2o = dict(zip(H2O_FIELDS, table[lay.h2o:lay.o2].reshape(-1, lay.n_h2o)))
+    o2 = dict(zip(O2_FIELDS, table[lay.o2:lay.o3].reshape(-1, lay.n_o2)))
+    p, t, rho, lwc = (a[..., None] for a in (p, t, rho, lwc))
+
+    ti = 300.0 / t
+    th1 = ti - 1.0
+    pvap = rho * t / 217.0
+    pda = p - pvap
+    # H2O lines
+    tix, tixs = ti ** h2o["x"], ti ** h2o["xs"]
+    width = h2o["w3"] * pda * tix + h2o["ws"] * pvap * tixs
+    wsq = width * width
+    s = h2o["s1"] * ti ** 2.5 * torch.exp(h2o["b2"] * (1.0 - ti))
+    base = width / (head["cutoff"] * head["cutoff"] + wsq)
+    sn = s * (0.3183e-4 * (3.344e16 * rho)) * (1.0 / (h2o["fl"] * h2o["fl"]))
+    gamma2 = h2o["w2"] * pda * tix + h2o["ws2"] * pvap * tixs
+    lines_h2o = dict(wsq=wsq, sw=sn * width, sb=sn * base, sn=sn,
+                     c0=width - 1.5 * gamma2, gamma2=gamma2)
+    con_b = (head["cf"] * ti ** head["xcf"] * pda
+             + head["cs"] * ti ** head["xcs"] * pvap) * pvap
+    # O2 lines
+    b = ti ** head["o2_x"]
+    den = 0.001 * (pda * b + head["h2o_factor"] * pvap * ti)
+    pe2 = den * den
+    dfnr = head["wb300"] * den
+    ybase = torch.where(head["mixing_basis_p"] != 0.0, 0.001 * p * b, den)
+    df = o2["w300"] * den
+    sn = (o2["s300"] * torch.exp(-o2["be"] * th1)) * (1.0 / (o2["f"] * o2["f"]))
+    dnu = pe2 * (o2["dnu0"] + o2["dnu1"] * th1)
+    c2 = 2.0 * (o2["f"] + dnu)
+    dfsq = df * df
+    dfg_s = sn * (df * (1.0 + pe2 * (o2["g0"] + o2["g1"] * th1)))
+    yc = (sn * (ybase * (o2["y0"] + o2["y1"] * th1))) * c2
+    lines_o2 = dict(dnu=dnu, c2=c2, dfsq=dfsq,
+                    k2=dfg_s * (c2 * c2) - 2.0 * dfsq * yc,
+                    k3=2.0 * dfg_s + yc)
+    # continua and cloud liquid
+    theta1 = 1.0 - ti
+    eps0 = 77.66 - 103.3 * theta1
+    eps1 = 0.0671 * eps0
+    scalars = dict(
+        con_b=con_b, k_nr=head["nonres"] * dfnr / ti, dfnr2=dfnr * dfnr,
+        o2s=head["o2_scale"] * pda * (ti * ti * ti),
+        n2k=head["n2_coef"] * pda * pda * ti ** head["n2_exp"],
+        inv_fp=1.0 / (20.1 * torch.exp(7.88 * theta1)), e01=eps0 - eps1,
+        e12=eps1 - 3.52, wk=-0.06286 * lwc)
+    return {"scalars": {k: v[..., 0] for k, v in scalars.items()},
+            "h2o": lines_h2o, "o2": lines_o2}
+
+
+def absorption_spectral_merged(f_ghz, p, t, rho, lwc, model: str = "R24"):
+    """K6's main pass in plain torch, in its order of operations: the state
+    of `line_state`, then one rational per line and frequency in
+    q = d1 d2 + w^2, where d1 = (f - f0) - dnu is the distance to the
+    (shifted) line centre, d2 = d1 + c that to its mirror image, c =
+    2 (f0 + dnu) and w the width.  With A = d1^2 + w^2 and B = d2^2 + w^2
+    the two Lorentzian halves n1 / A + n2 / B of an O2 line are
+    (n1 B + n2 A) / (A B), and A + B = c^2 + 2 q, A B = q^2 + w^2 c^2,
+    n1 B + n2 A = k2 + q k3 with the per-point coefficients k2, k3 of
+    `line_state`; an H2O line inside the cutoff on both sides is the same
+    with n1 = n2.  Two O2 lines share one divide, (n_a D_b + n_b D_a) /
+    (D_a D_b), and an odd line out goes alone.  Then the line sums
+    times f^2, and the liquid term from two reciprocals.  Divides are IEEE
+    here; the kernel takes an approximate reciprocal in the line loops.
+    Returns (F, *shape).
+
+    q is formed from the difference d1 and never expanded in f: as
+    (f^2 - (c / 2)^2) + w^2 it cancels at the line centres aloft.
     """
-    if p.device.type == "cpu":
-        return absorption_spectral_reference(f_ghz, p, t, rho, lwc, model,
-                                             f_range)
+    _check_model(model)
+    lay = table_layout(model, False)
+    table = torch.as_tensor(pack_tables(model, False), dtype=p.dtype,
+                            device=p.device)
+    cut = table[HEADER_FIELDS.index("cutoff")]
+    fdep_on = bool(table[HEADER_FIELDS.index("n2_fdep")] != 0.0)
+    fl = table[lay.h2o:lay.h2o + lay.n_h2o]
+    f0 = table[lay.o2:lay.o2 + lay.n_o2]
+    h2o = H2O_MODELS[model]
+    sd = (np.asarray(h2o.w2) != 0.0) | (np.asarray(h2o.ws2) != 0.0)
+    st = line_state(p, t, rho, lwc, model)
+    f = torch.as_tensor(f_ghz, dtype=p.dtype, device=p.device)
+    f = f.reshape((-1,) + (1,) * p.ndim)
+
+    acc_h2o = torch.zeros((f.shape[0], *p.shape), dtype=p.dtype,
+                          device=p.device)
+    for line in range(lay.n_h2o):
+        wsq, sw, sb, sn, c0, gamma2 = (
+            st["h2o"][k][..., line][None]
+            for k in ("wsq", "sw", "sb", "sn", "c0", "gamma2"))
+        d1, d2 = f - fl[line], f + fl[line]
+        a, b = d1 * d1 + wsq, d2 * d2 + wsq
+        near_in, far_in = d1.abs() < cut, d2.abs() < cut
+        if sd[line]:
+            near = torch.zeros_like(acc_h2o)
+            for x_k, w_k in zip(_GL_X, _GL_W):
+                cr = c0 + gamma2 * float(x_k)
+                near = near + (sn * float(w_k) * cr) / (cr * cr + d1 * d1)
+        else:
+            near = sw / a
+        apart = (torch.where(near_in, near - sb, 0.0)
+                 + torch.where(far_in, sw / b - sb, 0.0))
+        # both halves as one rational in q = d1 d2 + w^2, with c = 2 fl:
+        # A + B = c^2 + 2 q and A B = q^2 + w^2 c^2
+        csq = 4.0 * fl[line] * fl[line]
+        q = d1 * d2 + wsq
+        both = ((sw * csq + q * (2.0 * sw)) / (q * q + wsq * csq)
+                - 2.0 * sb)
+        acc_h2o = acc_h2o + torch.where(
+            near_in & far_in & (not sd[line]), both, apart)
+
+    def o2_rational(line):
+        """Numerator and denominator of one O2 line's merged halves."""
+        dnu, c2, dfsq, k2, k3 = (
+            st["o2"][k][..., line][None]
+            for k in ("dnu", "c2", "dfsq", "k2", "k3"))
+        d1 = (f - f0[line]) - dnu
+        q = d1 * (d1 + c2) + dfsq
+        return k2 + q * k3, q * q + dfsq * (c2 * c2)
+
+    acc_o2 = torch.zeros_like(acc_h2o)
+    paired = lay.n_o2 - lay.n_o2 % 2
+    for line in range(0, paired, 2):
+        (na, da), (nb, db) = o2_rational(line), o2_rational(line + 1)
+        acc_o2 = acc_o2 + (na * db + nb * da) / (da * db)
+    for line in range(paired, lay.n_o2):
+        num, den = o2_rational(line)
+        acc_o2 = acc_o2 + num / den
+
+    sc = {k: v[None] for k, v in st["scalars"].items()}
+    f2 = f * f
+    h2o_term = f2 * (acc_h2o + sc["con_b"])
+    nonres = sc["k_nr"] * f2 / (f2 + sc["dfnr2"])
+    o2_term = torch.clamp_min(sc["o2s"] * (nonres + f2 * acc_o2), 0.0)
+    fdep = (0.5 + 0.5 / (1.0 + (f / 450.0) * (f / 450.0)) if fdep_on
+            else torch.ones_like(f))
+    n2_term = sc["n2k"] * (fdep * f2)
+    u = f * sc["inv_fp"]
+    v = u * (1.0 / 39.8)
+    ru, rv = 1.0 / (1.0 + u * u), 1.0 / (1.0 + v * v)
+    re = 3.52 + sc["e01"] * ru + sc["e12"] * rv
+    im = -(sc["e01"] * (u * ru) + sc["e12"] * (v * rv))
+    aimag = 3.0 * im / ((re + 2.0) * (re + 2.0) + im * im)
+    return h2o_term + o2_term + n2_term + sc["wk"] * (aimag * f)
+
+
+def _launch(f_ghz, p, t, rho, lwc, model, f_range, lines=True):
+    """Check the inputs and launch K6: the state pass, then (with `lines`)
+    the main pass.  Returns (state (n_state, N), alpha (F, *shape) or
+    None)."""
     _check_model(model)
     dev = p.device
     f = (f_ghz if torch.is_tensor(f_ghz)
@@ -95,17 +303,61 @@ def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
     layout = table_layout(model, False)
     tables = line_tables(model, False, dev)
     check_points(dict(p=p, t=t, rho=rho, lwc=lwc), tables, layout)
-    out = torch.empty((f.numel(), *p.shape), dtype=torch.float32, device=dev)
+    rows, n = n_state(model), p.numel()
+    scratch = torch.empty(rows * n + f.numel(), dtype=torch.float32,
+                          device=dev)
+    out = (torch.empty((f.numel(), *p.shape), dtype=torch.float32,
+                       device=dev) if lines else None)
     with torch.cuda.device(dev):
         err = _build.library().mwr_absorption_spectral(
             p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
-            f.data_ptr(), f.numel(), tables.data_ptr(), layout.size,
-            layout.n_h2o, layout.n_o2, layout.h2o, layout.o2, layout.gl,
-            p.numel(), out.data_ptr(),
+            f.data_ptr(), f.numel(), tables.data_ptr(), layout.n_h2o,
+            layout.n_o2, layout.h2o, layout.o2, layout.gl, h2o_slots(model),
+            n, int(lines), scratch.data_ptr(), out.data_ptr() if lines else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"spectral absorption kernel launch failed: CUDA "
                            f"error {err}")
+    return scratch[:rows * n].reshape(rows, n), out
+
+
+def resident_warps(model: str = "R24") -> int:
+    """Warps of K6's main pass that the current CUDA device keeps resident
+    per SM for `model`'s state, from the occupancy calculator."""
+    _check_model(model)
+    layout = table_layout(model, False)
+    warps = _build.library().mwr_absorption_spectral_resident_warps(
+        layout.n_h2o, layout.n_o2, h2o_slots(model))
+    if warps < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-warps}")
+    return warps
+
+
+def line_state_pass(p, t, rho, lwc, model: str = "R24"):
+    """K6's state pass alone on CUDA float32 points: the (n_state, N) rows
+    that `line_state` documents.  Not counted as a launch of K6."""
+    return _launch(torch.ones(1, device=p.device), p, t, rho, lwc, model,
+                   None, lines=False)[0]
+
+
+def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
+                        f_range=None):
+    """Monochromatic absorption: frequencies f_ghz (F,) [GHz] and p [hPa],
+    T [K], rho [g/m^3], LWC [g/m^3] of one shape -> alpha (F, *shape)
+    [Np/km].
+
+    f_ghz is a sequence, a numpy array or a tensor; on the kernel path a
+    contiguous float32 tensor on the points' device is used as it is.
+    f_range = (fmin, fmax), when given, is checked against the frequencies:
+    ValueError if one lies outside it.  CPU tensors take the plain version.
+    CUDA tensors (float32, contiguous) launch K6 on the release's packed
+    `line_tables(model, False, device)`; the per-point state lives in a
+    scratch tensor allocated here.
+    """
+    if p.device.type == "cpu":
+        return absorption_spectral_reference(f_ghz, p, t, rho, lwc, model,
+                                             f_range)
+    out = _launch(f_ghz, p, t, rho, lwc, model, f_range)[1]
     absorption_spectral.launches += 1
     return out
 

@@ -21,6 +21,30 @@ def promote(*xs):
     return [t.to(device=device, dtype=dtype) for t in ts]
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None.  Raises RuntimeError when
+    None is given and there is no card: the CPU is used only on request."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda")
+
+
+def input_device(x) -> torch.device:
+    """The device an entry point works on, from one of its inputs: a tensor
+    stays where it is (that is the caller asking, a CPU tensor for the
+    CPU); a numpy array or a sequence goes to `resolve_device()`, the card."""
+    if torch.is_tensor(x):
+        return x.device
+    try:
+        return resolve_device()
+    except RuntimeError as exc:
+        raise RuntimeError(f"{exc}: give the profiles as CPU tensors, as "
+                           f"demo_batch(..., device='cpu') does") from None
+
+
 @functools.lru_cache(maxsize=64)
 def _constant_vector(values: tuple, dtype, device) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)

@@ -19,18 +19,40 @@ What is counted.  The bound is one of the function, not of the body under
 each quantity is charged once, on the indices it depends on: the Planck
 radiance per (channel, level, profile) and the chord per (elevation, layer,
 profile), although the RTE kernels recompute both in every (elevation,
-channel, profile) thread; a line's width and strength once per point,
-although K6 recomputes them in each tile of 16 frequencies; what depends on
-the frequency grid alone (f - f_line, (f / f_line)^2, the continuum's
-frequency factor) once per call.  The two halves of one line, a / A + b / B,
-are charged as the one rational (a B + b A) / (A B): one divide and three
-more multiplies (not on K4's dual numbers, where that form costs more than
-it saves).  Rationals of different lines are not merged further (each
-merge squares the dynamic range of the denominators).  A transmittance is
-charged one exponential per (elevation, channel, layer, profile).  With
-`as_coded=True` every function returns instead what its body under `csrc/`
-executes, recomputation included: the arithmetic a kernel of that design
-would pay if it hid all latency.
+channel, profile) thread; a line's width and strength once per point (K6
+does so in its state pass); what depends on the frequency grid alone
+(f - f_line, (f / f_line)^2, the continuum's frequency factor) once per
+call, although every thread of K6 forms f - f_line again.
+
+The line shapes are charged in the cheapest form known that holds the
+accuracy.  On floats (K1, K6) a line's two halves a / A + b / B are the one
+rational (k2 + q k3) / (q^2 + k1) in q = d1 d2 + w^2 (K6's main pass,
+`csrc/absorption_spectral.cu`, has the algebra): the coefficients once per
+(point, line), and d1 d2 of an H2O line, which has no pressure shift, on
+the grid alone.  Two O2 lines share one divide, (n_a D_b + n_b D_a) /
+(D_a D_b): the denominators are sums of squares under 1e13, so the product
+stays in range; no more lines are merged than that (each merge squares the
+range), and H2O lines, whose cutoff tests differ from line to line, are not
+paired.  The strengths carry 1 / f_line^2 and the sums are multiplied by
+f^2 once per (point, frequency).  A qSD node's c_r, its weight times c_r
+and c_r^2 are charged once per (point, line, node).  On K4's dual numbers
+the merged forms cost more than they save, so there the halves stay apart
+and the count is that of the formulas as written.  Where u = x / T < 0.25
+the Planck radiance x / expm1(u) of a level may be taken as its series
+T (1 - u / 2 + u^2 / 12 - u^4 / 720), exact in float32 there: no
+exponential and one divide less for seven more instructions of the fp32
+pipe.  `k2_roofline` charges the share `planck_series_fraction` of the
+(channel, level, profile) so (`planck_series_share` finds what share of a
+run's data has u < 0.25: all of it for a microwave channel at atmospheric
+temperatures); at its default 0.0 every level is charged the exponential,
+which is the lower count where the fp32 pipe bounds the function, as it
+does for K2 at the published peaks.  A transmittance is charged one
+exponential per (elevation, channel, layer, profile).
+
+With `as_coded=True` every function returns instead what its body under
+`csrc/` executes, recomputation included: the arithmetic a kernel of that
+design would pay if it hid all latency.  No function's count is above its
+body's in any resource.
 
 Counting convention.  `fma_ops` is a lower bound on the instructions of the
 fp32 pipe: one instruction does at most one multiply and one add, so M
@@ -56,7 +78,7 @@ import time
 import numpy as np
 import torch
 
-from ..constants import H2O_MODELS, O2_MODELS, hatpro, o3_lines
+from ..constants import HK_GHZ, H2O_MODELS, O2_MODELS, hatpro, o3_lines
 from ..ops.cuda import chain as chain_mod
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), per second.
@@ -270,12 +292,13 @@ def _charge(body: dict, cost: dict, times: dict) -> _Ops:
     return total
 
 
-# ---- K1, K4, K6: the absorption body (csrc/absorption.cuh) ----------------
+# ---- K1, K4: the absorption body (csrc/absorption.cuh); K6's is below -----
 #
 # Each operation of the body by kind.  f* are operations on plain floats
 # (the same in every mode); v* are operations on the body's value type V:
 # float for K1 and K6, the dual number {v, d/dT, d/drho} for K4, whose
 # operators (absorption.cuh, `struct Dual`) cost what _DUAL says.
+#   (K6 shares the function's count on floats, `_ABSORPTION_NEEDED_FLOAT`.)
 #   vmul V*V, vmuls V*float, vadd V+-V, vadds V+-float, rsub float-V,
 #   vneg -V, vdiv V/V, vdivs V/float, sdivv float/V, vexp exp_, vpow pow_,
 #   vmax0 max0, vsel a select between two V, cmp a compare.
@@ -304,8 +327,8 @@ _POINT = ("sdivv vadds vmul vdivs rsub vpow fmul vmuls*2 "
           "vmul*2 vmuls vmul vpow "
           "rsub vmuls rsub vmuls vmuls vexp vmuls vmuls vadd vadds")
 _FDEP = "fdiv fmul fadd fdiv fadd cmp"
-# What the body executes.  A block evaluates one tile of frequencies (all
-# channels for K1 and K4, 16 for K6) for its points.
+# What the body of K1 and K4 executes: one thread per point evaluates all
+# channels, its "tile".
 _ABSORPTION_CODED = {
     # once per (point, tile): ti, th1, pvap, pda, ti25, cut2, h2o_scale,
     # con_b; the O2 block's b, den, pe2, dfnr, ybase; ti3; the dry
@@ -353,8 +376,9 @@ _ABSORPTION_CODED = {
     "o3_pair": "fadd*2 fmul*2 fadd*2 fdiv*2 fadd fmul*4 fadd fmul fadd",
     "o3_channel": "fmul fadd",
 }
-# What the function needs (the module docstring has the rules): the entries
-# that change, and those charged once per call on the frequency grid.
+# What the function needs with the halves of a line kept apart, as K4's dual
+# numbers take it (the module docstring has the rules): the entries that
+# change, and those charged once per call on the frequency grid.
 _ABSORPTION_NEEDED = dict(
     _ABSORPTION_CODED,
     # once per point; beside the body's: 1 / fp, dfnr^2, n2_b n2_t and
@@ -367,18 +391,12 @@ _ABSORPTION_NEEDED = dict(
     h2o_pair="vmul vmuls vadd",
     # one half inside the cutoff: df^2 + wsq, the divide, minus base
     h2o_half="vadds vdiv vadd",
-    # both halves as one rational: A, B, A + B, width (A + B), A B, the
-    # divide, minus twice base
-    h2o_both="vadds*2 vadd vmul*2 vdiv vadd",
     h2o_sd_half="vadd*2 " + _QSD_NODE * 16,
     # per (frequency, O2 line) on the grid alone: f -+ f0, (f / f0)^2
     o2_grid="fadd*2 fmul*2",
-    # per (point, frequency, O2 line): d1, d2; the numerators dfg +- d y;
-    # the denominators d^2 + dfsq; n1 B + n2 A; A B; one divide; times the
-    # strength and (f / f0)^2; the sum
-    o2_pair=("rsub vadds vmul*2 vadd*2 vmul*2 vadd*2 vmul*2 vadd vmul "
-             "vdiv vmul vmuls vadd"),
-    # the same with the two halves divided apart
+    # per (point, frequency, O2 line), the halves divided apart: d1, d2;
+    # the numerators dfg +- d y; the denominators d^2 + dfsq; two divides;
+    # times the strength and (f / f0)^2; the sum
     o2_pair_apart=("rsub vadds vmul*2 vadd*2 vmul*2 vadd*2 vdiv*2 vadd "
                    "vmul vmuls vadd"),
     # per frequency on the grid alone: fc^2 and its products with the
@@ -399,16 +417,154 @@ _ABSORPTION_NEEDED = dict(
     o3_grid="fadd*2 fmul*4",
     o3_pair="fadd*3 fmul*2 fdiv fmul*2 fadd",
 )
+# The same on floats, with each line as one rational in q (the module
+# docstring has the rules): the entries that differ from the above.
+_QSD_NODE_SETUP = "vmuls vadd vmuls vmul vmul "    # c_r, its weight, c_r^2
+_ABSORPTION_NEEDED_FLOAT = dict(
+    _ABSORPTION_NEEDED,
+    # more per (point, H2O line): the strength with the density scale and
+    # 1 / fl^2, times the width and times the base; k1, k2, k3; the running
+    # sum of the bases
+    h2o_line=_ABSORPTION_CODED["h2o_line"] + " vmul vmuls vmul*4 vmuls vadd",
+    h2o_sd_line=_ABSORPTION_CODED["h2o_sd_line"] + " " + _QSD_NODE_SETUP * 16,
+    # per (frequency, H2O line) on the grid alone: d1, d2, the cutoff tests,
+    # d1 d2; per half inside the cutoff: d^2
+    h2o_grid="fadd*2 cmp*2 fmul", h2o_grid_half="fmul",
+    # both halves inside the cutoff: q, the numerator, the denominator, the
+    # divide, the sum
+    h2o_both="vadds vmul vadd vmul vadd vdiv vadd",
+    # one half: d^2 + wsq, the divide, the sum
+    h2o_half="vadds vdiv vadd",
+    # the near half of a qSD line, per node: c_r^2 + d1^2, the divide, the sum
+    h2o_sd_half="vadds vdiv vadd " * 16,
+    # more per (point, O2 line): c = 2 (f0 + dnu), the strength over f0^2,
+    # its products with dfg and with y c, k1, k2, k3
+    o2_line=(_ABSORPTION_CODED["o2_line"]
+             + " vadds vmuls*2 vmul*7 vadd*2 vmuls"),
+    # per (frequency, O2 line) on the grid alone: f - f0
+    o2_grid="fadd",
+    # per (point, frequency, O2 line): d1, d2, q, the numerator, the
+    # denominator
+    o2_rational="rsub vadd vmul vadd vmul vadd vmul vadd",
+    # per (point, frequency, two O2 lines): n_a D_b + n_b D_a, D_a D_b, the
+    # divide, the sum; the odd line out: the divide and the sum
+    o2_two="vmul*2 vadd vmul vdiv vadd", o2_one="vdiv vadd",
+    # more per (point, frequency): the bases' sum off the H2O lines, the O2
+    # lines' sum times f^2
+    channel=_ABSORPTION_NEEDED["channel"] + " vadd vmul",
+)
 
-_TILE = 16   # frequencies per tile of K6 (kMaxChannels in absorption.cuh)
+# What K6's two passes execute (csrc/absorption_spectral.cu), on floats.
+_K6_TILE = 8    # frequencies per register tile (kFT)
+_K6_CODED = {
+    # state pass, once per point: ti, th1, pvap, pda, ti25, cut2, h2o_scale;
+    # con_b; b, den, pe2, dfnr, ybase; the nine scalars
+    "point": ("fdiv fadd fmul fdiv fadd fpow fmul fmul*2 "
+              "fpow*2 fmul*4 fadd "
+              "fpow fmul*4 fadd fmul fmul fmul*2 cmp "
+              "fadd fmul fadd fmul fmul fdiv fmul fmul*4 fmul*3 fpow "
+              "fmul fexp fmul fdiv fadd*2 fmul"),
+    # state pass, per (point, H2O line): tix, tixs, width, wsq, s, base, sn,
+    # sw, sb
+    "h2o_line": ("fpow*2 fmul*4 fadd fmul fadd fmul fexp fmul*2 fadd fdiv "
+                 "fmul*3 fdiv fmul*2"),
+    # more per (point, H2O line) of a qSD release: gamma2, c0
+    "h2o_sd_line": "fmul*4 fadd fmul fadd",
+    # state pass, per (point, O2 line): df, sn, dfg, dnu, c2, dfsq, dfg_s,
+    # yc, k2, k3
+    "o2_line": ("fmul fmul fexp fmul*2 fdiv fmul fadd fmul fadd fmul "
+                "fmul fadd fmul fadd fmul fmul fmul fmul fadd fmul*3 "
+                "fmul*4 fadd fmul fadd"),
+    # state pass, per frequency: the dry continuum's factor
+    "freq": _FDEP,
+    # main pass, per (point, tile): the tile's lowest and highest frequency
+    "tile": f"cmp*{2 * _K6_TILE}",
+    # per (point, tile, H2O line): the four cutoff tests of the tile's ends
+    "tile_h2o_line": "fadd*4 cmp*4",
+    # per (point, tile, H2O line merged below): c^2, k1, k2, k3, and 2 sb
+    # into the tile's sum
+    "tile_h2o_both": "fmul*6 fadd",
+    # per (point, frequency, H2O line) with both halves inside the cutoff
+    # for the whole tile: d1, d2, q, the numerator, the denominator, the
+    # reciprocal and its product, the sum
+    "h2o_both": "fadd*2 fmul fadd fmul fadd fmul fadd fdiv fmul fadd",
+    # per (point, frequency, H2O line) otherwise: d1, d2, d1^2, the tests
+    "h2o_apart": "fadd*2 fmul cmp*2",
+    # a near half inside the cutoff (not qSD), a far half inside it
+    "h2o_near": "fadd fdiv fmul fadd*2",
+    "h2o_far": "fmul fadd fdiv fmul fadd*2",
+    # per (point, tile, qSD line, node): cr, crw, cr^2; per (point,
+    # frequency, qSD line inside the cutoff, node): one rational
+    "tile_sd_node": "fmul fadd fmul*3",
+    "h2o_sd_node": "fadd fdiv fmul fadd",
+    # per (point, frequency, qSD line inside the cutoff): minus sb
+    "h2o_sd_near": "fadd",
+    # per (point, tile, O2 line): k1 = dfsq c2^2
+    "tile_o2_line": "fmul*2",
+    # per (point, frequency, O2 line): d1 = (f - f0) - dnu, d2 = d1 + c2,
+    # q = d1 d2 + dfsq, k2 + q k3, q^2 + k1
+    "o2_rational": "fadd*3 fmul fadd fmul fadd fmul fadd",
+    # per (point, frequency, two O2 lines): n_a D_b + n_b D_a, D_a D_b, the
+    # reciprocal and its product, the sum; the odd line out: the same alone
+    "o2_two": "fmul*2 fadd fmul fdiv fmul fadd",
+    "o2_one": "fdiv fmul fadd",
+    # per (point, frequency): f^2; the water term; the non-resonant O2 term
+    # and the clamp; N2; u, v, the two reciprocals, re, im, aimag; the sum
+    "channel": ("fmul fadd*2 fmul "
+                "fmul fadd fdiv fmul fadd fmul cmp "
+                "fmul*2 "
+                "fmul*2 fmul fadd fdiv fmul fadd fdiv fmul*2 fadd*2 "
+                "fmul*4 fadd vneg fmul fadd fmul*2 fadd fdiv "
+                "fmul*2 fadd*3"),
+}
 
 
-def _absorption_ops(n_points, freqs, model, cost, tile, with_o3=False,
+def _k6_coded_ops(n_points, freqs, model, n_h2o_lines=None,
+                  n_o2_lines=None) -> _Ops:
+    """Operations of K6's two passes over `n_points` points and the grid
+    `freqs`, taken in tiles of 8 consecutive frequencies as the kernel
+    takes them: a non-qSD H2O line is merged where the whole tile lies
+    inside the cutoff on both sides, and two O2 lines share a reciprocal."""
+    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
+    f = np.asarray(freqs, np.float64).reshape(-1)
+    fl = np.asarray(h2o.fl, np.float64)[:n_h2o_lines]
+    sd = ((np.asarray(h2o.w2) != 0) | (np.asarray(h2o.ws2) != 0))[:fl.size]
+    n_o2 = np.asarray(o2.f)[:n_o2_lines].size
+    nf, tiles = f.size, -(-f.size // _K6_TILE)
+    near = np.abs(f[:, None] - fl[None, :]) < h2o.cutoff_ghz     # (F, lines)
+    far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
+    tile_of = np.arange(nf) // _K6_TILE
+    whole = np.ones((tiles, fl.size), bool)       # tiles wholly inside both
+    np.logical_and.at(whole, tile_of, near & far)
+    merged = whole[tile_of] & ~sd[None, :]                       # (F, lines)
+    nodes = 16
+    per_point = {
+        "point": 1, "h2o_line": fl.size,
+        "h2o_sd_line": fl.size * bool(h2o.has_sd), "o2_line": n_o2,
+        "tile": tiles, "tile_h2o_line": tiles * fl.size,
+        "tile_o2_line": tiles * n_o2,
+        "tile_h2o_both": (whole & ~sd[None, :]).sum(),
+        "h2o_both": merged.sum(), "h2o_apart": (~merged).sum(),
+        "h2o_near": (near & ~merged & ~sd[None, :]).sum(),
+        "h2o_far": (far & ~merged).sum(),
+        "tile_sd_node": tiles * int(sd.sum()) * nodes,
+        "h2o_sd_node": near[:, sd].sum() * nodes,
+        "h2o_sd_near": near[:, sd].sum(),
+        "o2_rational": nf * n_o2, "o2_two": nf * (n_o2 // 2),
+        "o2_one": nf * (n_o2 % 2), "channel": nf}
+    total = _charge(_K6_CODED, _FLOAT, {"freq": nf})
+    total.add_scaled(_charge(_K6_CODED, _FLOAT, per_point), n_points)
+    return total
+
+
+def _absorption_ops(n_points, freqs, model, cost, with_o3=False,
                     n_h2o_lines=None, n_o2_lines=None,
                     as_coded=False) -> _Ops:
     """Operations of the absorption function over `n_points` points and the
-    frequencies `freqs` (as coded: of the body, evaluated in tiles of
-    `tile`).  The Clough-cutoff branches are counted for these frequencies:
+    frequencies `freqs`, on floats or (`cost` = _DUAL) on K4's dual numbers
+    (as coded: of K1's and K4's body, which sets a point and its lines up
+    once for all channels).  The Clough-cutoff
+    branches are counted for these frequencies:
     a Lorentzian half is evaluated where |f -+ f_line| lies under the
     release's cutoff."""
     h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
@@ -421,32 +577,30 @@ def _absorption_ops(n_points, freqs, model, cost, tile, with_o3=False,
     far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
     nf, n_sd = f.size, int(sd.sum())
     fdep = model not in ("R98", "R03")      # the 1998 continuum has none
-    per_point = {"h2o_pair": nf * fl.size, "h2o_sd_half": near[:, sd].sum(),
-                 "o2_pair": nf * n_o2, "channel": nf, "o3_pair": nf * n_o3,
-                 "o3_channel": nf * with_o3}
+    per_point = {"h2o_sd_half": near[:, sd].sum(), "channel": nf,
+                 "o3_pair": nf * n_o3, "o3_channel": nf * with_o3}
+    halves = near[:, ~sd].sum() + far.sum()
     if as_coded:
         body, per_call = _ABSORPTION_CODED, {}
-        tiles = -(-nf // tile)
-        per_point.update(h2o_half=near[:, ~sd].sum() + far.sum(),
-                         channel_fdep=nf * fdep)
+        per_point.update(h2o_pair=nf * fl.size, h2o_half=halves,
+                         o2_pair=nf * n_o2, channel_fdep=nf * fdep)
     else:
-        body, tiles = _ABSORPTION_NEEDED, 1
-        # On dual numbers the merged rational costs more multiplies than
-        # the divide it saves is worth at the published peaks, so there the
-        # two halves stay apart.
-        both = near & far & ~sd & (cost is not _DUAL)
-        per_point.update(h2o_both=both.sum(),
-                         h2o_half=near[:, ~sd].sum() + far.sum()
-                         - 2 * both.sum())
-        if cost is _DUAL:
-            per_point["o2_pair_apart"] = per_point.pop("o2_pair")
         per_call = {"h2o_grid": nf * fl.size,
                     "h2o_grid_half": near.sum() + far.sum(),
                     "o2_grid": nf * n_o2, "o3_grid": nf * n_o3,
                     "channel_grid": nf, "channel_fdep": nf * fdep}
-    per_point.update(point=tiles, h2o_line=tiles * fl.size,
-                     h2o_sd_line=tiles * n_sd, o2_line=tiles * n_o2,
-                     o3_point=tiles * with_o3, o3_line=tiles * n_o3)
+        if cost is _DUAL:
+            body = _ABSORPTION_NEEDED
+            per_point.update(h2o_pair=nf * fl.size, h2o_half=halves,
+                             o2_pair_apart=nf * n_o2)
+        else:
+            body = _ABSORPTION_NEEDED_FLOAT
+            both = (near & far & ~sd).sum()
+            per_point.update(h2o_both=both, h2o_half=halves - 2 * both,
+                             o2_rational=nf * n_o2,
+                             o2_two=nf * (n_o2 // 2), o2_one=nf * (n_o2 % 2))
+    per_point.update(point=1, h2o_line=fl.size, h2o_sd_line=n_sd,
+                     o2_line=n_o2, o3_point=with_o3, o3_line=n_o3)
     total = _charge(body, cost, per_call)
     total.add_scaled(_charge(body, cost, per_point), n_points)
     return total
@@ -470,7 +624,7 @@ def k1_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
     (at most 16).  Reads p, T, rho, LWC (and O3), the table and the
     channels; writes alpha."""
     f = np.asarray(freqs, np.float64).reshape(-1)
-    ops = _absorption_ops(n_points, f, model, _FLOAT, max(f.size, 1), with_o3,
+    ops = _absorption_ops(n_points, f, model, _FLOAT, with_o3,
                           n_h2o_lines, n_o2_lines, as_coded)
     n_in = 5 if with_o3 else 4
     return ops.roofline(4.0 * n_points * (n_in + f.size) + 4 * f.size
@@ -484,7 +638,7 @@ def k4_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
     """K4, `absorption_tangents_lb`: alpha, dalpha/dT and dalpha/drho
     (F, n_points): K1's formulas carried on dual numbers (no O3)."""
     f = np.asarray(freqs, np.float64).reshape(-1)
-    ops = _absorption_ops(n_points, f, model, _DUAL, max(f.size, 1), False,
+    ops = _absorption_ops(n_points, f, model, _DUAL, False,
                           n_h2o_lines, n_o2_lines, as_coded)
     return ops.roofline(4.0 * n_points * (4 + 3 * f.size) + 4 * f.size
                         + _table_bytes(model, False, n_h2o_lines, n_o2_lines))
@@ -493,12 +647,15 @@ def k4_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
 def k6_roofline(n_points: int, freqs, model: str = "R24", n_h2o_lines=None,
                 n_o2_lines=None, as_coded: bool = False) -> Roofline:
     """K6, `absorption_spectral`: alpha (F, n_points) on the runtime grid
-    `freqs`.  The Clough branches are counted for this grid.  As coded, the
-    body runs once per tile of 16 frequencies and repeats each point's and
-    each line's setup there."""
+    `freqs`.  The Clough branches are counted for this grid.  As coded:
+    the state pass once per point and the main pass in tiles of 8
+    frequencies (`_k6_coded_ops`); the state's round trip through L2 is
+    not in the bytes."""
     f = np.asarray(freqs, np.float64).reshape(-1)
-    ops = _absorption_ops(n_points, f, model, _FLOAT, _TILE, False,
-                          n_h2o_lines, n_o2_lines, as_coded)
+    ops = (_k6_coded_ops(n_points, f, model, n_h2o_lines, n_o2_lines)
+           if as_coded else
+           _absorption_ops(n_points, f, model, _FLOAT, False,
+                           n_h2o_lines, n_o2_lines))
     return ops.roofline(4.0 * n_points * (4 + f.size) + 4 * f.size
                         + _table_bytes(model, False, n_h2o_lines, n_o2_lines))
 
@@ -506,6 +663,9 @@ def k6_roofline(n_points: int, freqs, model: str = "R24", n_h2o_lines=None,
 # ---- K2, K3: the downwelling RTE (csrc/rte.cu) ---------------------------
 
 _PLANCK = "fdiv*2 fexp"                  # x / expm1f(x / t)
+# the same while u = x / t < 0.25 (K3's staged body takes it so):
+# t (1 - u / 2 + u^2 / 12 - u^4 / 720), u from one reciprocal
+_PLANCK_SERIES = "fdiv fmul cmp fmul*2 fadd fmul fadd fmul fadd fmul"
 # the chord of one layer: two sqrtf count as divides
 _CHORD = ("fadd fadd fmul fdiv fadd*2 fmul cmp fdiv "
           "fadd*2 fmul cmp fdiv fadd*2 fmul fadd cmp fdiv fmul")
@@ -528,12 +688,22 @@ _RTE_CODED = {
     # per (thread, layer) below an opacity of 0.03 (the series), and above
     "layer_small": "fmul*7 fadd*4",
     "layer_large": "fadd*2 fdiv",
+    # K3's staged body.  Per thread: x; planck of the cosmic background; the
+    # tail
+    "staged_thread": f"fmul {_PLANCK} {_RTE_TAIL}",
+    # per (thread, layer): d, ctau, expf, the small-opacity test, the
+    # emission sum
+    "staged_layer": "fmul fadd fexp cmp fmul*2 fadd*3",
+    # per (thread, level): planck, by its series or with expm1f
+    "staged_level_series": _PLANCK_SERIES,
+    "staged_level": _PLANCK,
 }
 # What the function needs: each quantity on the indices it depends on.
 _RTE_NEEDED = dict(
     _RTE_CODED,
     freq=f"fmul {_PLANCK}",        # per channel: x, the cosmic background
     level=_PLANCK,                 # per (channel, level, profile)
+    level_series=_PLANCK_SERIES,   # the same where x / t < 0.25
     level_step="fadd",             # per (channel, layer, profile): dB
     path="fadd fmul*2",            # per (elevation, profile)
     chord=_CHORD,                  # per (elevation, layer, profile)
@@ -548,6 +718,7 @@ def k2_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
                 n_elevations: int = 10, alpha_is_mid: bool = False,
                 given_paths: bool = False, want_trans_level: bool = False,
                 small_dtau_fraction: float = 1.0,
+                planck_series_fraction: float = 0.0,
                 as_coded: bool = False) -> Roofline:
     """K2, `forward_lb`, and with `given_paths` K3, `downwelling_lb`: tb,
     tau_total, t_mr (E, F, B) from alpha (F, L or L-1, B).
@@ -555,14 +726,29 @@ def k2_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
     `small_dtau_fraction` is the share of (elevation, channel, layer,
     profile) opacities under 0.03, which take the series branch: it
     depends on the data (1.0 for a thin atmosphere); `small_dtau_share`
-    computes it from a run's inputs.
+    computes it from a run's inputs.  `planck_series_fraction` is the share
+    of (channel, level, profile) with x / T < 0.25, whose Planck radiance
+    needs no exponential (`planck_series_share`).  As coded, K3 without
+    trans_level on a batch that is a multiple of 4 is its staged body,
+    which takes that share of the levels by the series; the body shared
+    with K2 takes none.
     """
     threads = float(batch) * n_channels * n_elevations
     layers = threads * (n_levels - 1)
     times = {"thread": threads, "layer": layers,
              "layer_small": layers * small_dtau_fraction,
              "layer_large": layers * (1.0 - small_dtau_fraction)}
-    if as_coded:
+    if as_coded and given_paths and not want_trans_level and batch % 4 == 0:
+        # K3's staged body (csrc/rte.cu::staged_takes); blocks of 32 profiles
+        body = _RTE_CODED
+        levels = threads * n_levels
+        times = {"staged_thread": threads, "staged_layer": layers,
+                 "staged_level_series": levels * planck_series_fraction,
+                 "staged_level": levels * (1.0 - planck_series_fraction),
+                 "layer_mean": layers * (not alpha_is_mid),
+                 "layer_small": times["layer_small"],
+                 "layer_large": times["layer_large"]}
+    elif as_coded:
         body = _RTE_CODED
         times.update(thread_chord=threads * (not given_paths),
                      layer_chord=layers * (not given_paths),
@@ -571,7 +757,10 @@ def k2_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
         body = _RTE_NEEDED
         fields = float(batch) * n_channels          # (channel, profile)
         paths = float(batch) * n_elevations * (not given_paths)
-        times.update(freq=n_channels, level=fields * n_levels,
+        levels = fields * n_levels
+        times.update(freq=n_channels,
+                     level=levels * (1.0 - planck_series_fraction),
+                     level_series=levels * planck_series_fraction,
                      level_step=fields * (n_levels - 1),
                      layer_mean=fields * (n_levels - 1) * (not alpha_is_mid),
                      path=paths, chord=paths * (n_levels - 1))
@@ -590,6 +779,15 @@ def k2_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
 def small_dtau_share(dtau, threshold: float = 0.03) -> float:
     """The share of layer opacities `dtau` (any shape) under `threshold`."""
     return float((dtau < threshold).double().mean())
+
+
+def planck_series_share(freqs_ghz, t) -> float:
+    """The share of (channel, level, profile) with u = (h f / k) / T under
+    0.25, where the Planck radiance is its four-term series: frequencies
+    (F,) [GHz] against temperatures `t` of any shape [K]."""
+    f = torch.as_tensor(freqs_ghz, dtype=t.dtype, device=t.device)
+    u = HK_GHZ * f.reshape((-1,) + (1,) * t.ndim) / t
+    return float((u < 0.25).double().mean())
 
 
 # ---- K5: the adjoint with the assembly (csrc/adjoint.cu) ------------------
@@ -634,6 +832,7 @@ _ADJOINT_NEEDED = {
     # for t, dB/dT from the same x / T and expm1
     "level": f"{_PLANCK} fadd fmul",
     "level_planck": "fmul fadd fmul*2 fdiv",
+
     # per (elevation, channel, profile): ctt, dtb_dr, level 0 of K
     "thread": "fmul fadd fdiv fexp fmul fadd fmul*3 fdiv fmul",
     "thread_planck": "fadd",

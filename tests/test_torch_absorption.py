@@ -33,7 +33,7 @@ FREQS = lbl.LBLConfig().freqs_ghz
 @pytest.fixture(scope="module")
 def points():
     """demo_batch(4, 96) levels, flattened, as float32 numpy arrays."""
-    b = lbl.demo_batch(4, 96)
+    b = lbl.demo_batch(4, 96, device="cpu")
     z = b["z"].numpy().reshape(-1)
     o3 = np.interp(z / 1000.0, afgl.CLIMATOLOGIES["midlatitude_summer"]
                    ["z_km"], afgl.CLIMATOLOGIES["midlatitude_summer"]
@@ -98,7 +98,8 @@ def test_unknown_model_raises():
 
 @pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
 def test_reference_layout_equals_total_absorption(with_o3):
-    prof = {k: v.T.contiguous() for k, v in lbl.demo_batch(3, 40).items()}
+    prof = {k: v.T.contiguous()
+            for k, v in lbl.demo_batch(3, 40, device="cpu").items()}
     o3 = lbl._afgl_o3(prof["z"]) if with_o3 else None
     args = [prof[k] for k in ("p", "t", "rho", "lwc")]
     got = k1.absorption_lb_reference(FREQS, *args, "R20SD", o3=o3)
@@ -110,7 +111,8 @@ def test_reference_layout_equals_total_absorption(with_o3):
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():
-    prof = {k: v.T.contiguous() for k, v in lbl.demo_batch(2, 30).items()}
+    prof = {k: v.T.contiguous()
+            for k, v in lbl.demo_batch(2, 30, device="cpu").items()}
     args = [prof[k] for k in ("p", "t", "rho", "lwc")]
     before = k1.absorption_lb.launches
     got = k1.absorption_lb(FREQS, *args, "R24")
@@ -174,7 +176,7 @@ def _jax_partial(model, name, lev, freqs):
 def levels64():
     """(L, B) float64 levels of demo_batch(2, 40): the cloud layer is in."""
     return {k: v.T.contiguous().double()
-            for k, v in lbl.demo_batch(2, 40).items()}
+            for k, v in lbl.demo_batch(2, 40, device="cpu").items()}
 
 
 @pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
@@ -226,7 +228,8 @@ def test_tangents_are_the_derivatives(levels64):
 
 
 def test_tangent_wrapper_takes_the_plain_version_on_cpu():
-    prof = {k: v.T.contiguous() for k, v in lbl.demo_batch(2, 30).items()}
+    prof = {k: v.T.contiguous()
+            for k, v in lbl.demo_batch(2, 30, device="cpu").items()}
     args = [prof[k] for k in ("p", "t", "rho", "lwc")]
     got = k1.absorption_tangents_lb(FREQS, *args, "R24")
     assert k1.absorption_tangents_lb.launches == 0

@@ -120,7 +120,7 @@ def test_derivative_helpers_are_derivatives():
 def levels():
     """(L, B) float64 levels of demo_batch(3, 40) and their refractive
     index."""
-    prof = lbl.level_major_profiles(lbl.demo_batch(3, 40),
+    prof = lbl.level_major_profiles(lbl.demo_batch(3, 40, device="cpu"),
                                     lbl.LBLConfig(dtype="float64"))
     prof["n"] = geometry.refractive_index(
         prof["p"], prof["t"], thermo.rho_to_e(prof["rho"], prof["t"]))
@@ -254,7 +254,8 @@ def test_assembled_reference_matches_the_jax_kernel(which):
     largest entry."""
     freqs, elevs = (54.94,), (30.0,)
     prof = lbl.level_major_profiles(
-        {k: v.repeat(128, 1) for k, v in lbl.demo_batch(1, 16).items()},
+        {k: v.repeat(128, 1)
+         for k, v in lbl.demo_batch(1, 16, device="cpu").items()},
         lbl.LBLConfig())
     alpha, da, g, t = _k5_inputs(prof, freqs, elevs, torch.float32)
     geo = [] if which == "lwc" else [

@@ -30,7 +30,7 @@ def _jax(profiles):
 def profiles():
     """16 seeded profiles of 96 levels; the port's `demo_batch` makes the
     JAX package's numbers in numpy."""
-    return lbl.demo_batch(16, N_LEVELS)
+    return lbl.demo_batch(16, N_LEVELS, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -191,7 +191,7 @@ def test_each_packages_own_fit_gives_the_same_tbs(profiles, fitted):
 
 
 def test_fit_generalizes_to_unseen_profiles(fitted):
-    unseen = lbl.demo_batch(8, N_LEVELS, seed=777)
+    unseen = lbl.demo_batch(8, N_LEVELS, seed=777, device="cpu")
     teacher = lbl.forward_batch(unseen, lbl.LBLConfig(
         model="R24", elevations_deg=ELEVS, outputs=("tb",)))["tb"]
     pred = fast.fast_forward_batch(fitted[0], unseen, fast.FastConfig(

@@ -90,7 +90,7 @@ def test_port_imports_from_a_directory_that_holds_nothing_else(tmp_path):
             f"assert pathlib.Path(m.__file__).resolve().is_relative_to(here);"
             f" assert pathlib.Path(hatpro.__file__).resolve()"
             f".is_relative_to(here); "
-            f"tb = lbl.forward_batch(lbl.demo_batch(1, 24), "
+            f"tb = lbl.forward_batch(lbl.demo_batch(1, 24, device='cpu'), "
             f"lbl.LBLConfig(outputs=('tb',)))['tb']; "
             f"assert tb.shape == (1, 10, 14) and bool(torch.isfinite(tb)"
             f".all()); "

@@ -28,7 +28,7 @@ WRT = ("t", "rho", "lwc")
 
 @pytest.fixture(scope="module")
 def batch():
-    return lbl.demo_batch(3, 32)
+    return lbl.demo_batch(3, 32, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +130,7 @@ def test_physical_signs():
     freqs = (22.24, 31.4, 58.0)
     cfg = lbl.LBLConfig(elevations_deg=(90.0,), freqs_ghz=freqs,
                         dtype="float64")
-    prof = lbl.demo_batch(2, 180, dtype=torch.float64)
+    prof = lbl.demo_batch(2, 180, dtype=torch.float64, device="cpu")
     k = jacobians.kmatrix_batch_fast(prof, cfg, wrt=("t", "lwc"))
     cloud = prof["lwc"][0] > 0
     assert int(cloud.sum()) >= 3

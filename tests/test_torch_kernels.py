@@ -30,6 +30,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
     OPS as CHAIN_OPS, chain, chain_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
     downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+    spectral as k6)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (
     absorption_spectral, absorption_spectral_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import profiling
@@ -271,15 +273,16 @@ def test_kmatrix_wrappers_refuse_what_the_kernels_do_not_take(device):
 
 
 def _grid(nf, device):
-    """nf frequencies over 20-64 GHz: 16-frequency tiles and a tail."""
+    """nf frequencies over 20-64 GHz: 8-frequency tiles and a tail."""
     return torch.linspace(20.0, 64.0, nf, device=device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", sorted(H2O_MODELS))
 def test_spectral_kernel_matches_plain(device, model):
-    """K6 against its plain version on (L, B) points and a grid of 16-wide
-    tiles plus a tail of 5: 1e-4 of each frequency's largest alpha."""
+    """K6 against its plain version on (L, B) points (39 groups of 32 and a
+    tail of 12) and a grid of 8-wide tiles plus a tail of 5: 1e-4 of each
+    frequency's largest alpha."""
     prof = _levels(7, 180, device)
     f = _grid(101, device)
     args = (f, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
@@ -292,6 +295,54 @@ def test_spectral_kernel_matches_plain(device, model):
     err = (got - want).abs().amax(dim=(1, 2))
     scale = want.abs().amax(dim=(1, 2))
     assert bool((err <= 1e-4 * scale).all()), (err / scale).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["R24", "R20SD"])
+def test_spectral_state_pass_matches_plain(device, model):
+    """K6's first pass against `line_state` in float64, row by row: 1e-5 of
+    each row's largest value (R20SD has the three rows more of the qSD
+    lines)."""
+    prof = _levels(7, 180, device)
+    args = [prof[k] for k in ("p", "t", "rho", "lwc")]
+    before = absorption_spectral.launches
+    state = k6.line_state_pass(*args, model)
+    assert absorption_spectral.launches == before
+    want = k6.line_state(*(a.reshape(-1).double() for a in args), model)
+    h2o_rows = ("wsq", "sw", "sb", "sn", "c0", "gamma2")[:k6.h2o_slots(model)]
+    rows = torch.stack(
+        [want["scalars"][k] for k in k6.STATE_SCALARS]
+        + [want["h2o"][k][:, line]
+           for line in range(want["h2o"]["sw"].shape[1]) for k in h2o_rows]
+        + [want["o2"][k][:, line]
+           for line in range(want["o2"]["dnu"].shape[1])
+           for k in ("dnu", "c2", "dfsq", "k2", "k3")])
+    torch.cuda.synchronize()
+    assert tuple(state.shape) == (k6.n_state(model), 180 * 7)
+    err = (state.double() - rows).abs().amax(dim=1)
+    scale = rows.abs().amax(dim=1).clamp_min(1e-300)
+    assert bool((err <= 1e-5 * scale).all()), (err / scale).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["R03", "R20SD", "R24"])
+def test_spectral_kernel_holds_float64(device, model):
+    """K6 on the 50k grid's spacing across the
+    51-54 GHz window and the 60.3 GHz line, points up to 41 hPa: 5e-6 of
+    each frequency's largest alpha against the function in float64 on the
+    kernel's float32 tables."""
+    prof = _levels(5, 180, device)
+    step = 44.0 / 49_999
+    f = torch.cat([51.0 + step * torch.arange(203, device=device),
+                   60.2 + step * torch.arange(250, device=device)])
+    args = (f, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
+    got = absorption_spectral(*args)
+    want = k6.absorption_spectral_float64(*args)
+    torch.cuda.synchronize()
+    assert float(prof["p"].min()) < 45.0
+    err = (got.double() - want).abs().amax(dim=(1, 2))
+    scale = want.abs().amax(dim=(1, 2))
+    assert bool((err <= 5e-6 * scale).all()), (err / scale).max()
 
 
 @pytest.mark.cuda
@@ -369,6 +420,49 @@ def test_downwelling_kernel_matches_plain(device, batch, want_trans,
     if want_trans:
         assert float((got["trans_level"] - want["trans_level"])
                      .abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,alpha_is_mid,staged", [
+    ((1, 100, 32, 180), False, True),    # the spectral chunk's tile
+    ((3, 50, 28, 37), False, True),      # a tile part empty, ragged stages
+    ((2, 17, 4, 2), False, True),        # one layer
+    ((1, 33, 8, 6), True, True),         # layer means, one ragged stage
+    ((2, 40, 64, 9), True, True),        # two tiles of profiles
+    ((3, 50, 30, 37), False, False),     # B not a multiple of 4
+    ((1, 33, 7, 6), True, False),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_downwelling_bodies_match_plain(device, shape, alpha_is_mid, staged):
+    """Both bodies of K3 on seeded synthetic columns (opacities on both
+    sides of the 0.03 series threshold), frequencies from 20 GHz to 3 THz so
+    that the staged body's Planck series and its expm1f branch both run: tb
+    to 5e-3 K of the plain version, tau_total to 1e-5 relative."""
+    n_el, nf, batch, n_lev = shape
+    assert staged == (batch % 4 == 0)
+    gen = torch.Generator().manual_seed(sum(shape))
+    rows = n_lev - 1 if alpha_is_mid else n_lev
+    alpha = (10.0 ** (3.0 * torch.rand((nf, rows, batch), generator=gen)
+                      - 3.0)).to(device)
+    ds = (0.05 + 0.3 * torch.rand((n_el, n_lev - 1, batch),
+                                  generator=gen)).to(device)
+    t = (180.0 + 120.0 * torch.rand((n_lev, batch), generator=gen)).to(device)
+    f = torch.cat([torch.linspace(20.0, 200.0, nf - 3),
+                   torch.tensor([900.0, 1500.0, 3000.0])]).to(device)
+    args = (f, alpha, ds, t, alpha_is_mid)
+    before = downwelling_lb.launches
+    got = downwelling_lb(*args)
+    assert downwelling_lb.launches == before + 1
+    want = downwelling_lb_reference(*args)
+    torch.cuda.synchronize()
+    assert set(got) == set(want) == {"tb", "tau_total", "t_mr"}
+    assert got["tb"].shape == (n_el, nf, batch)
+    assert bool(torch.isfinite(got["tb"]).all())
+    assert float((got["tb"] - want["tb"]).abs().max()) <= 5e-3
+    torch.testing.assert_close(got["tau_total"], want["tau_total"],
+                               rtol=1e-5, atol=0)
+    # the other body on the same inputs (it also writes trans_level)
+    other = downwelling_lb(*args, want_trans_level=True)
+    assert float((got["tb"] - other["tb"]).abs().max()) <= 5e-3
 
 
 @pytest.mark.cuda

@@ -13,11 +13,14 @@ import torch
 
 from mwr_fast_forward_operators_and_lbls_tpu.models import lbl as jlbl
 from mwr_fast_forward_operators_and_lbls_tpu_torch import anchors
-from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl
+from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+    fast, jacobians, lbl, spectral)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
     absorption_lb)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
     forward_lb)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.tensors import (
+    resolve_device)
 
 torch.set_num_threads(1)
 
@@ -29,7 +32,7 @@ ALL_OUTPUTS = ("tb", "tau_total", "t_mr", "trans_level")
 
 @pytest.fixture(scope="module")
 def batch():
-    return lbl.demo_batch(4, 96)
+    return lbl.demo_batch(4, 96, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +136,7 @@ def test_fp32_within_budget_of_fp64(out32, out64):
 def test_matches_jax_pallas_path():
     """Against the JAX Pallas path (interpret mode on the CPU), which rounds
     to bf16 on purpose: the JAX package's own 2e-2 K gate."""
-    b = lbl.demo_batch(2, 64)
+    b = lbl.demo_batch(2, 64, device="cpu")
     kw = dict(model="R24", elevations_deg=(90.0, 4.2), outputs=("tb",))
     want = jlbl.forward_batch({k: v.numpy() for k, v in b.items()},
                               jlbl.LBLConfig(use_pallas=True, **kw))["tb"]
@@ -179,11 +182,11 @@ def test_forward_single_matches_batch(batch, out32):
 def test_demo_profile_equals_jax():
     for seed in (0, 7):
         want = jlbl.demo_profile(50, seed)
-        got = lbl.demo_profile(50, seed)
+        got = lbl.demo_profile(50, seed, device="cpu")
         for k in want:
             assert got[k].dtype == torch.float32
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    got64 = lbl.demo_batch(2, 50, seed=3, dtype=torch.float64)
+    got64 = lbl.demo_batch(2, 50, seed=3, dtype=torch.float64, device="cpu")
     want = jlbl.demo_batch(2, 50, seed=3)
     for k in want:
         assert got64[k].dtype == torch.float64
@@ -199,7 +202,7 @@ def test_forward_all_models(batch, cfg, out32):
 
 
 def test_lbl_operator_module(batch, cfg, out32):
-    op = lbl.LBLOperator(cfg)
+    op = lbl.LBLOperator(cfg, device="cpu")
     assert "tables" in dict(op.named_buffers())
     got = op(batch)
     for k in ALL_OUTPUTS:
@@ -218,10 +221,51 @@ def test_cpu_runs_the_plain_path(batch, cfg, out32):
 
 
 def test_outputs_subset_and_numpy_input(batch, cfg, out32):
-    got = lbl.forward_batch({k: v.numpy() for k, v in batch.items()},
-                            dataclasses.replace(cfg, outputs=("tb",)))
+    """A subset of the outputs; numpy profiles ask for the card, so without
+    one they raise, and as CPU tensors they run the plain path."""
+    sub = dataclasses.replace(cfg, outputs=("tb",))
+    arrays = {k: v.numpy() for k, v in batch.items()}
+    got = lbl.forward_batch({k: torch.as_tensor(v) for k, v in arrays.items()},
+                            sub)
     assert set(got) == {"tb"}
     torch.testing.assert_close(got["tb"], out32["tb"], rtol=0, atol=0)
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lbl.forward_batch(arrays, sub)
+
+
+ENTRY_POINTS = {
+    "forward_batch": lambda a: lbl.forward_batch(a),
+    "forward_spectral": lambda a: spectral.forward_spectral(a, [22.0, 31.0]),
+    "kmatrix_batch": lambda a: jacobians.kmatrix_batch(a),
+    "kmatrix_batch_fast": lambda a: jacobians.kmatrix_batch_fast(a),
+    "demo_batch": lambda a: lbl.demo_batch(2, 8),
+    "demo_profile": lambda a: lbl.demo_profile(8),
+    "LBLOperator": lambda a: lbl.LBLOperator(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Without a card, an entry point that is not asked for the CPU raises
+    and names `device="cpu"`; numpy profiles count as not asking."""
+    assert not torch.cuda.is_available()
+    arrays = {k: v.numpy()
+              for k, v in lbl.demo_batch(2, 8, device="cpu").items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](arrays)
+
+
+def test_device_cpu_asks_for_the_cpu():
+    b = lbl.demo_batch(2, 8, device="cpu")
+    assert all(v.device.type == "cpu" and v.shape == (2, 8)
+               for v in b.values())
+    assert lbl.demo_profile(8, device="cpu")["t"].shape == (8,)
+    op = lbl.LBLOperator(lbl.LBLConfig(outputs=("tb",)), device="cpu")
+    assert op.tables.device.type == "cpu"
+    assert op(b)["tb"].shape == (2, 10, 14)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert fast.resolve_device is resolve_device
 
 
 def test_flip_profile_roundtrip(batch):

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
+    H2O_MODELS, O2_MODELS)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import chain
 from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import profiling
 
@@ -168,6 +170,8 @@ KERNEL_ROOFLINES = {
     "k2_trans": lambda b, **kw: P.k2_roofline(b, want_trans_level=True, **kw),
     "k3": lambda b, **kw: P.k2_roofline(b, 180, 8192, 1, given_paths=True,
                                         **kw),
+    "k3_series": lambda b, **kw: P.k2_roofline(
+        b, 180, 8192, 1, given_paths=True, planck_series_fraction=1.0, **kw),
     "k4": lambda b, **kw: P.k4_roofline(b * 180, **kw),
     "k5_t": lambda b, **kw: P.k5_roofline(b, which="t", **kw),
     "k5_rho": lambda b, **kw: P.k5_roofline(b, which="rho", **kw),
@@ -201,9 +205,19 @@ def test_function_bound_is_not_above_what_the_body_executes(name):
     assert needed.time_bound_s() <= coded.time_bound_s()
     assert needed.div_ops <= coded.div_ops
     assert needed.exp_ops <= coded.exp_ops
-    # as coded, the operations are proportional to the batch
-    assert dataclasses.astuple(make(128, as_coded=True))[:3] == pytest.approx(
-        [2 * v for v in dataclasses.astuple(coded)[:3]], rel=1e-12)
+    # as coded, the operations are proportional to the batch, but for what
+    # K6's state pass forms once per frequency of the grid
+    per_call = [2 * a - b for a, b in zip(
+        dataclasses.astuple(coded)[:3],
+        dataclasses.astuple(make(128, as_coded=True))[:3])]
+    n_grid = {"k6": GRID.size, "k6_sd": 64}.get(name, 0)
+    grid_only = P._charge(P._K6_CODED, P._FLOAT, {"freq": n_grid})
+    tol = 1e-12 * coded.fma_ops
+    assert per_call[1:] == pytest.approx([grid_only.div, grid_only.exp],
+                                         abs=tol)
+    # multiplies or adds, whichever the body has more of
+    assert any(per_call[0] == pytest.approx(most + grid_only.other, abs=tol)
+               for most in (grid_only.mul, grid_only.add))
 
 
 def test_each_quantity_is_charged_on_the_indices_it_depends_on():
@@ -224,8 +238,66 @@ def test_each_quantity_is_charged_on_the_indices_it_depends_on():
     f32 = np.linspace(22.0, 31.0, 32)
     k6 = profiling.k6_roofline(1000, f32)
     assert k6.exp_ops == profiling.k6_roofline(1000, f32[:16]).exp_ops
+    # and so does the body: its state pass runs once per call
     assert profiling.k6_roofline(1000, f32, as_coded=True).exp_ops \
-        == 2 * k6.exp_ops
+        == k6.exp_ops
+
+
+def test_float_lines_are_one_rational_and_two_o2_lines_share_a_divide():
+    """Per (point, frequency) the function on floats needs one divide per
+    two O2 lines, one per H2O line that has a half inside the cutoff and
+    four in the tail; on dual numbers the halves stay apart."""
+    f, n = np.linspace(51.0, 54.0, 16), 1000
+    fl, cut = H2O_MODELS["R24"].fl, H2O_MODELS["R24"].cutoff_ghz
+    near = np.abs(f[:8, None] - fl) < cut
+    far = np.abs(f[:8, None] + fl) < cut
+    n_o2 = O2_MODELS["R24"].f.size
+
+    def per_frequency(make, field):
+        """Of one point more, on the first eight frequencies."""
+        def per_point(grid):
+            return (getattr(make(2 * n, grid), field)
+                    - getattr(make(n, grid), field)) / n
+        return per_point(f) - per_point(f[8:])
+
+    want = 8 * (-(-n_o2 // 2) + 4) + (near | far).sum()
+    assert per_frequency(P.k6_roofline, "div_ops") == pytest.approx(want)
+    assert per_frequency(P.k1_roofline, "div_ops") == pytest.approx(want)
+    # K4: two dual divides per O2 line, one per half, and the tail's
+    apart = per_frequency(P.k4_roofline, "div_ops")
+    assert apart >= 8 * 2 * n_o2 + near.sum() + far.sum()
+    # the body pays an add more per O2 line and a multiply more per pair
+    coded = per_frequency(lambda *a: P.k6_roofline(*a, as_coded=True),
+                          "fma_ops")
+    needed = per_frequency(P.k6_roofline, "fma_ops")
+    assert 8 * n_o2 <= coded - needed <= 8 * 3 * n_o2
+
+
+def test_planck_series_share_moves_the_rte_count():
+    t = torch.tensor([[250.0], [2.7]])
+    assert P.planck_series_share((22.0, 60.0), t) == 0.5
+    assert P.planck_series_share((22.0, 60.0), t[:1]) == 1.0
+    closed = P.k2_roofline(32, 180, 8192, 1, given_paths=True)
+    series = P.k2_roofline(32, 180, 8192, 1, given_paths=True,
+                           planck_series_fraction=1.0)
+    levels = 8192 * 180 * 32
+    # an exponential and a divide less per (channel, level, profile), more
+    # of the fp32 pipe, the same bytes
+    assert closed.exp_ops - series.exp_ops == levels
+    assert closed.div_ops - series.div_ops == levels
+    assert series.fma_ops > closed.fma_ops
+    assert series.hbm_bytes == closed.hbm_bytes
+    half = P.k2_roofline(32, 180, 8192, 1, given_paths=True,
+                         planck_series_fraction=0.5)
+    assert half.exp_ops == pytest.approx(0.5 * (closed.exp_ops
+                                                + series.exp_ops))
+    # K3's staged body takes the same share by the series
+    for share in (0.0, 1.0):
+        body = P.k2_roofline(32, 180, 8192, 1, given_paths=True,
+                             planck_series_fraction=share, as_coded=True)
+        want = P.k2_roofline(32, 180, 8192, 1, given_paths=True,
+                             planck_series_fraction=share)
+        assert 0 <= body.exp_ops - want.exp_ops < 0.01 * want.exp_ops
 
 
 def test_dual_numbers_cost_more_than_floats():

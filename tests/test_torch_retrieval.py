@@ -27,7 +27,7 @@ def _jax(tree):
 
 @pytest.fixture(scope="module")
 def setup():
-    profiles = lbl.demo_batch(16, N_LEVELS)
+    profiles = lbl.demo_batch(16, N_LEVELS, device="cpu")
     cfg = fast.FastConfig(elevations_deg=ELEVS, outputs=("tb",))
     params = fast.fit_closed_form(profiles, cfg)
     ocfg = retrieval.OEMConfig(elevations_deg=ELEVS, n_iter=4)
@@ -38,7 +38,7 @@ def setup():
 def setup40():
     """The 40-level grid of the JAX package's retrieval tests: the prior's
     correlation length is 8 levels, so its gates belong to that grid."""
-    profiles = lbl.demo_batch(16, 40)
+    profiles = lbl.demo_batch(16, 40, device="cpu")
     cfg = fast.FastConfig(elevations_deg=ELEVS, outputs=("tb",))
     params = fast.fit_closed_form(profiles, cfg)
     ocfg = retrieval.OEMConfig(elevations_deg=ELEVS, n_iter=4)

@@ -28,7 +28,8 @@ DTYPES = {"float64": (torch.float64, np.float64),
 def _levels(batch=3, n_levels=60, seed=5):
     """(L, B) float64 numpy levels of demo profiles and their alpha."""
     prof = {k: v.T.contiguous().double()
-            for k, v in lbl.demo_batch(batch, n_levels, seed).items()}
+            for k, v in lbl.demo_batch(batch, n_levels, seed,
+                                       device="cpu").items()}
     alpha = absorption_lb_reference(FREQS, prof["p"], prof["t"], prof["rho"],
                                     prof["lwc"], "R24")
     e = thermo.rho_to_e(prof["rho"], prof["t"])

@@ -153,7 +153,7 @@ def test_wrapper_takes_the_plain_version_on_cpu(points):
 
 @pytest.fixture(scope="module")
 def profiles():
-    return lbl.demo_batch(3, 48)
+    return lbl.demo_batch(3, 48, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -283,3 +283,119 @@ def test_plain_routes_and_float64(profiles, grid, port_out):
     assert out64["tb"].dtype == torch.float64
     np.testing.assert_allclose(out64["tb"].numpy(), port_out["tb"].numpy(),
                                rtol=0, atol=2e-3)
+
+
+# ---- the arithmetic of K6's redesigned body, held against float64 ---------
+
+def _line_centre_case():
+    """Six points from a humid surface to the top of the column (25 hPa),
+    and grids at the 50k spectrum's 0.88 MHz spacing around the 22.235 GHz
+    water line, the 51-54 GHz window and three O2 line centres."""
+    points = {
+        "p": [1013.0, 1000.0, 500.0, 100.0, 41.0, 25.0],
+        "t": [303.0, 288.0, 250.0, 215.0, 220.0, 222.0],
+        "rho": [25.0, 12.0, 1.0, 0.01, 0.001, 0.0005],
+        "lwc": [0.0, 0.2, 0.1, 0.0, 0.0, 0.0]}
+    grids = [np.arange(c - half, c + half, 0.00088)
+             for c, half in ((22.235, 0.2), (52.5, 1.5), (56.26, 0.2),
+                             (58.45, 0.2), (60.3, 0.2))]
+    f = torch.from_numpy(np.concatenate(grids).astype(np.float32))
+    return f, [torch.tensor(points[k]) for k in ("p", "t", "rho", "lwc")]
+
+
+def _share_of_max(got, ref):
+    """max |got - ref| as a share of each frequency's maximum of ref."""
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    return float(((got.double() - ref).abs() / scale).max())
+
+
+@pytest.mark.parametrize("model", sorted(k6.H2O_MODELS))
+def test_merged_arithmetic_against_float64(model):
+    """The order of operations of K6's main pass (per-point line state, one
+    rational in q = d1 d2 + w^2 per line, two O2 lines on one divide,
+    folded strengths, f^2 after the loops, the liquid term from two
+    reciprocals), in float32 with IEEE divides, against the
+    function in float64 on the same float32 inputs, tables included: at
+    most twice the plain float32 version's error and under 3e-6 of each
+    frequency's maximum alpha."""
+    f, args = _line_centre_case()
+    ref = k6.absorption_spectral_float64(f, *args, model)
+    plain = _share_of_max(
+        k6.absorption_spectral_reference(f, *args, model), ref)
+    merged = _share_of_max(
+        k6.absorption_spectral_merged(f, *args, model), ref)
+    assert merged <= 2.0 * plain and merged < 3e-6, (merged, plain)
+    # in float64 the merged form is the function itself
+    merged64 = k6.absorption_spectral_merged(
+        f.double(), *(a.double() for a in args), model)
+    exact = k6.absorption_spectral_reference(
+        f.double(), *(a.double() for a in args), model)
+    assert _share_of_max(merged64, exact) < 1e-12
+
+
+def _o2_line_sum(f, args, model, expanded):
+    """The O2 lines' sum of K6's main pass, one rational per line from the
+    state of `line_state`, with q from the difference d1 or expanded in f;
+    and the factor o2s f^2 that takes it to alpha."""
+    st = k6.line_state(*args, model)
+    f0 = torch.as_tensor(k6.O2_MODELS[model].f, dtype=f.dtype)
+    dnu, c2, dfsq, k2, k3 = (st["o2"][k][None]
+                             for k in ("dnu", "c2", "dfsq", "k2", "k3"))
+    f = f[:, None, None]
+    if expanded:
+        c = 0.5 * c2
+        q = (f * f - c * c) + dfsq
+    else:
+        d1 = (f - f0) - dnu
+        q = d1 * (d1 + c2) + dfsq
+    total = ((k2 + q * k3) / (q * q + dfsq * (c2 * c2))).sum(-1)
+    return total, st["scalars"]["o2s"][None] * (f * f)[..., 0]
+
+
+@pytest.mark.parametrize("model", ["R98", "R24"])
+def test_expanded_pair_cancels_at_the_line_centres(model):
+    """q = d1 d2 + w^2 formed as (f^2 - (c / 2)^2) + w^2 instead of from the
+    difference d1 = f - c / 2 fails the bound of the test above more than
+    ten times over its error: f^2 is about 3600, where float32 resolves
+    2.4e-4, and q falls to 1e-3 at the line centres at 25 hPa."""
+    f, args = _line_centre_case()
+    ref = k6.absorption_spectral_float64(f, *args, model)
+    alpha = k6.absorption_spectral_merged(f, *args, model)
+    merged = _share_of_max(alpha, ref)
+    from_d1, scale = _o2_line_sum(f, args, model, expanded=False)
+    in_f, _ = _o2_line_sum(f, args, model, expanded=True)
+    expanded = _share_of_max(alpha + scale * (in_f - from_d1), ref)
+    assert expanded > 3e-6 and expanded > 10.0 * merged, (expanded, merged)
+
+
+def test_float32_tables_move_alpha_more_than_the_arithmetic():
+    """Rounding the line tables to float32 moves alpha by more than any of
+    the float32 arithmetic does: the reason K6 is held against float64 on
+    its own tables."""
+    f, args = _line_centre_case()
+    args64 = [a.double() for a in args]
+    on_float32_tables = k6.absorption_spectral_float64(f, *args, "R24")
+    exact = k6.absorption_spectral_reference(f.double(), *args64, "R24")
+    moved = _share_of_max(exact, on_float32_tables)
+    plain = _share_of_max(
+        k6.absorption_spectral_reference(f, *args, "R24"), on_float32_tables)
+    assert 3e-6 < moved < 2e-5 and plain < 1e-6, (moved, plain)
+
+
+@pytest.mark.parametrize("model", ["R17", "R20SD", "R24"])
+def test_line_state_layout(model):
+    """`line_state` has one entry per row of the kernel's state, and the
+    merged form rebuilt from the plain line shapes agrees with it."""
+    f, args = _line_centre_case()
+    st = k6.line_state(*args, model)
+    n_h2o = k6.H2O_MODELS[model].fl.size
+    n_o2 = k6.O2_MODELS[model].f.size
+    assert tuple(st["scalars"]) == k6.STATE_SCALARS
+    assert all(v.shape == (6,) for v in st["scalars"].values())
+    assert all(v.shape == (6, n_h2o) for v in st["h2o"].values())
+    assert tuple(st["o2"]) == ("dnu", "c2", "dfsq", "k2", "k3")
+    assert all(v.shape == (6, n_o2) for v in st["o2"].values())
+    assert k6.n_state(model) == (9 + k6.h2o_slots(model) * n_h2o + 5 * n_o2)
+    assert k6.h2o_slots(model) == (6 if model.endswith("SD") else 3)
+    if not model.endswith("SD"):
+        assert float(st["h2o"]["gamma2"].abs().max()) == 0.0
