@@ -10,15 +10,23 @@ twenty phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions, the
      kernel build time, each kernel instantiation's registers and spills,
-     and the warps of K6's and K3's staged bodies resident per SM;
-  1. the absorption kernel (K1) against its plain torch version on the card;
-  2. the RTE kernel (K2) against its plain torch version on the card;
+     and the warps of K1, K2's staged body, K6 and K3's staged body resident
+     per SM;
+  1. the absorption kernel (K1) against its plain torch version on the card
+     and against the function in float64 on the kernel's float32 tables;
+  2. the RTE kernel (K2) against its plain torch version on the card and
+     against the plain version in float64 (its chords are float64), with the
+     size of the copies each case takes and the same bits from both sizes,
+     and the TB error at 4.2 degrees against float64 beside that of the plain
+     float32 version, whose chords are float32;
   3. the forward path, `forward_batch` on 1024 HATPRO profiles x 180 levels,
      model R24, with both kernels' launch counts, against the plain path and
      the frozen fp64 TB golden;
   4. CUDA-event times (median of 20 after warm-up) of each kernel and of the
-     whole forward against the plain versions, of the four-release sweep
-     `forward_all_models`, and peak device memory; here and in phases 9 and
+     whole forward against the plain versions, of K2 on layer means, at the
+     retrieval's batch and with 4-byte copies, of the
+     four-release sweep `forward_all_models`, and peak device memory; here
+     and in phases 9 and
      13, each kernel's time also inside a CUDA graph of 20 calls, which
      leaves the host out;
   5. the absorption tangent kernel (K4) against its plain version, all nine
@@ -75,8 +83,8 @@ twenty phases, each printing its own lines:
      observations, the degrees of freedom;
  19. CUDA-event times of fast serving, one distillation step, the fast K
      and the retrieval, with peak device memory, and a `torch.profiler`
-     trace of fast serving and of the retrieval: device time by kernel and
-     the device's idle share.
+     trace of fast serving, of the retrieval and of the K-matrix: device
+     time by kernel and the device's idle share.
 
 It then prints one JSON line of per-kernel results and, last, one JSON line
 naming the device.  Any failed check raises, and the exit code is not 0.
@@ -156,6 +164,15 @@ def level_major(profiles):
     return {k: v.T.contiguous() for k, v in profiles.items()}
 
 
+def off_16_bytes(a):
+    """A contiguous copy of `a` that starts 4 bytes into its storage: the
+    RTE kernel copies it in 4-byte pieces."""
+    view = torch.empty(a.numel() + 1, dtype=a.dtype,
+                       device=a.device)[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 def k_error(got, ref):
     """max |got - ref| / max(|ref|, 1e-3 max |ref|): relative, with a floor
     where K crosses zero."""
@@ -220,10 +237,12 @@ def main() -> int:
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
         OPS as CHAIN_OPS, chain, chain_reference)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
-        profiling)
+        path_times, profiling)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+        absorption as k1_mod)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (  # noqa: E501
-        absorption_lb, absorption_lb_reference, absorption_tangents_lb,
-        absorption_tangents_lb_reference)
+        absorption_lb, absorption_lb_float64, absorption_lb_reference,
+        absorption_tangents_lb, absorption_tangents_lb_reference)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (  # noqa: E501
         kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
         kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
@@ -231,7 +250,7 @@ def main() -> int:
         n2_absorption)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
         downwelling_lb, downwelling_lb_reference, forward_lb,
-        forward_lb_reference, staged_resident_warps)
+        forward_lb_body, forward_lb_reference, staged_resident_warps)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
         spectral as k6)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (  # noqa: E501
@@ -261,12 +280,25 @@ def main() -> int:
     for src, name, report in ptxas_report(
             lib_path.with_suffix(".log").read_text()):
         print(f"phase 0: ptxas: {src} {name}: {report}")
-    for what, warps in (
-            ("K6 main pass, R24", k6.resident_warps("R24")),
-            ("K6 main pass, R20SD", k6.resident_warps("R20SD")),
-            (f"K3 staged body, L={L}", staged_resident_warps(L))):
+    for what, warps, least in (
+            (f"K1, F={len(freqs)}, R24",
+             k1_mod.resident_warps(len(freqs), "R24"), 24),
+            ("K1, F=16, R20SD with O3",
+             k1_mod.resident_warps(16, "R20SD", True), 24),
+            (f"K2 staged body, F={len(freqs)} L={L}",
+             staged_resident_warps(L, kernel="K2", n_channels=len(freqs)),
+             42),
+            (f"K2 staged body on layer means with trans_level, "
+             f"F={len(freqs)} L={L}",
+             staged_resident_warps(L, True, "K2", len(freqs), True), 42),
+            (f"K2 staged body with 4-byte copies, F={len(freqs)} L={L}",
+             staged_resident_warps(L, False, "K2", len(freqs), False, False),
+             42),
+            ("K6 main pass, R24", k6.resident_warps("R24"), 32),
+            ("K6 main pass, R20SD", k6.resident_warps("R20SD"), 32),
+            (f"K3 staged body, L={L}", staged_resident_warps(L), 32)):
         print(f"phase 0: {what}: {warps} warps resident per SM (of 64)")
-        check(warps >= 32, f"{what}: {warps} warps per SM")
+        check(warps >= least, f"{what}: {warps} warps per SM")
 
     # ---- phase 1: K1 against its plain version --------------------------
     def k1_case(model, batch, with_o3):
@@ -275,15 +307,30 @@ def main() -> int:
         args = (freqs, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
         got = absorption_lb(*args, o3=o3)
         ref = absorption_lb_reference(*args, o3=o3)
+        # float64 on the float32 numbers the kernel reads, 128 profiles at a
+        # time
+        ref64 = torch.cat([absorption_lb_float64(
+            freqs, *(prof[k][:, s:s + 128] for k in ("p", "t", "rho", "lwc")),
+            model, o3=None if o3 is None else o3[:, s:s + 128])
+            for s in range(0, batch, 128)], dim=2)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K1 {model} not finite")
         err = (got - ref).abs().amax(dim=(1, 2))
         scale = ref.abs().amax(dim=(1, 2))
         rel = float((err / scale).max())
+        scale64 = ref64.abs().amax(dim=(1, 2))
+        rel64 = float(((got.double() - ref64).abs().amax(dim=(1, 2))
+                       / scale64).max())
+        plain64 = float(((ref.double() - ref64).abs().amax(dim=(1, 2))
+                         / scale64).max())
         print(f"phase 1: K1 {model} B={batch} L={L} o3={with_o3}: "
               f"max|dalpha| {float(err.max()):.3e} Np/km, "
-              f"max per-channel relative {rel:.3e} (bound 1e-4)")
+              f"max per-channel relative {rel:.3e} (bound 1e-4); against "
+              f"float64 on the float32 tables {rel64:.3e} (bound 5e-6), the "
+              f"plain float32 version {plain64:.3e}")
         check(rel <= 1e-4, f"K1 {model} o3={with_o3} relative error {rel}")
+        check(rel64 <= 5e-6, f"K1 {model} o3={with_o3} error {rel64} vs "
+                             f"float64")
         return float(err.max())
 
     k1_err = k1_case("R24", B, False)
@@ -300,31 +347,88 @@ def main() -> int:
             prof["p"], prof["t"], thermo.rho_to_e(prof["rho"], prof["t"]))
         return alpha, prof["z"], n, prof["t"]
 
-    def k2_case(batch, alpha_is_mid, want_trans):
+    def k2_case(batch, alpha_is_mid, want_trans, aligned=True):
         alpha, z, n, t = k2_inputs(batch)
         if alpha_is_mid:
             alpha = (0.5 * (alpha[:, :-1] + alpha[:, 1:])).contiguous()
+        owned = alpha
+        if not aligned:
+            alpha = off_16_bytes(alpha)
         args = (freqs, elevs, alpha, z, n, t, alpha_is_mid, want_trans)
+        body = forward_lb_body(alpha, len(elevs), alpha_is_mid)
         got = forward_lb(*args)
         ref = forward_lb_reference(*args)
+        # the chords are float64: held to the plain version in float64 too,
+        # as K5 is
+        ref64 = forward_lb_reference(freqs, elevs, alpha.double(), z.double(),
+                                     n.double(), t.double(), alpha_is_mid,
+                                     want_trans)
         torch.cuda.synchronize()
         check(set(got) == set(ref), "K2 output keys")
         errs = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+        errs64 = {k: float((got[k].double() - ref64[k]).abs().max())
+                  for k in ref}
         print(f"phase 2: K2 B={batch} E={len(elevs)} F={len(freqs)} L={L} "
-              f"alpha_is_mid={alpha_is_mid} trans_level={want_trans}: "
-              + ", ".join(f"max|d {k}| {v:.3e}" for k, v in errs.items()))
+              f"alpha_is_mid={alpha_is_mid} trans_level={want_trans}: the "
+              f"{body} body: "
+              + ", ".join(f"max|d {k}| {v:.3e}" for k, v in errs.items())
+              + "; against the plain version in float64: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs64.items()))
         check(all(bool(torch.isfinite(v).all()) for v in got.values()),
               "K2 output not finite")
         check(errs["tb"] <= 5e-3, f"K2 tb error {errs['tb']} K > 5e-3 K")
+        check(errs64["tb"] <= 2e-3,
+              f"K2 tb error {errs64['tb']} K vs float64 > 2e-3 K")
         if want_trans:
-            check(errs["trans_level"] <= 1e-5,
-                  f"K2 trans_level error {errs['trans_level']} > 1e-5")
-        return errs["tb"]
+            check(errs64["trans_level"] <= 1e-5,
+                  f"K2 trans_level error {errs64['trans_level']} > 1e-5")
+        if not aligned:
+            # the same numbers wherever alpha lies
+            same = forward_lb(freqs, elevs, owned, z, n, t, alpha_is_mid,
+                              want_trans)
+            check(all(torch.equal(got[k], same[k]) for k in got),
+                  "K2's result depends on where alpha lies")
+        return errs["tb"], body
 
-    k2_err = k2_case(B, False, False)
+    wide, narrow = "staged", "staged, 4-byte copies"
+    k2_err, k2_body = k2_case(B, False, False)
+    check(k2_body == wide, f"K2 at B={B}: {k2_body}")
     k2_case(B, False, True)
-    k2_case(3, True, False)
+    check(k2_case(B, True, False)[1] == wide, "K2 on layer means")
+    check(k2_case(B, True, True, aligned=False)[1] == narrow,
+          "a view off the 16-byte boundary takes 4-byte copies")
+    check(k2_case(64, True, False)[1] == wide, "K2 at the retrieval's B")
+    check(k2_case(3, True, False)[1] == narrow, "K2 at B=3")
     k2_case(3, True, True)
+
+    # the chord at 4.2 degrees: TB against float64 from the kernel, whose
+    # chords are float64, and from the plain float32 version, whose chords
+    # are float32
+    low = (elevs[-1],)
+    alpha, z, n, t = k2_inputs(B)
+    same64 = forward_lb_reference(freqs, low, alpha.double(), z.double(),
+                                  n.double(), t.double())["tb"]
+    path64 = lbl.forward_batch(
+        {k: v.double() for k, v in lbl.demo_batch(B, L, device=dev).items()},
+        dataclasses.replace(cfg, dtype="float64", use_kernels=False,
+                            elevations_deg=low, outputs=("tb",))
+    )["tb"].permute(1, 2, 0)
+    chord_err = {}
+    for what, tb_low in (
+            ("the kernel (float64 chords)",
+             forward_lb(freqs, low, alpha, z, n, t)["tb"]),
+            ("the plain float32 version (float32 chords)",
+             forward_lb_reference(freqs, low, alpha, z, n, t)["tb"])):
+        chord_err[what] = (float((tb_low.double() - same64).abs().max()),
+                           float((tb_low.double() - path64).abs().max()))
+        print(f"phase 2: TB at {low[0]} deg, B={B}, {what}: max|dTB| "
+              f"{chord_err[what][0]:.3e} K against the plain version in "
+              f"float64 on the same float32 alpha, z, n, T; "
+              f"{chord_err[what][1]:.3e} K against forward_batch in float64 "
+              f"from the profiles")
+    kernel_chord, plain_chord = (v[0] for v in chord_err.values())
+    check(kernel_chord <= 1e-3 and kernel_chord <= plain_chord,
+          f"the float64 chord does not pay: {chord_err}")
 
     # ---- phase 3: the main path -----------------------------------------
     profiles = lbl.demo_batch(B, L, device=dev)
@@ -338,6 +442,13 @@ def main() -> int:
     print(f"phase 3: launches during the main path: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path was not launched: {launches}")
+    main_alpha = torch.empty((len(freqs), L, B), device=dev)
+    main_body = forward_lb_body(main_alpha, len(elevs))
+    print(f"phase 3: at the main path's shape (F={len(freqs)} L={L} B={B}, "
+          f"E={len(elevs)}) K2 runs as: {main_body} (16-byte copies); K1 and "
+          f"K2 have one body each")
+    check(main_body == wide, f"the main path takes K2 as {main_body}")
+    del main_alpha
     tb = out["tb"]
     check(tuple(tb.shape) == (B, len(elevs), len(freqs)),
           f"tb shape {tuple(tb.shape)}")
@@ -389,6 +500,26 @@ def main() -> int:
         print(f"phase 4: K2 RTE B={B} E={len(elevs)} F={len(freqs)} L={L} "
               f"trans_level={want_trans}: kernel {k_ms:.4f} ms ({g_ms:.4f} "
               f"ms in a graph), plain {p_ms:.4f} ms")
+    # K2's other shapes, in a graph: layer means (fast serving), the
+    # retrieval's batch, and 4-byte copies of the same data, which a view of
+    # alpha that starts 4 bytes into its storage takes
+    alpha_mid = (0.5 * (alpha[:, :-1] + alpha[:, 1:])).contiguous()
+    graph_times["forward_lb[alpha_is_mid]"] = graph_ms(
+        lambda: forward_lb(freqs, elevs, alpha_mid, z, n, t, True))
+    a64, z64, n64, t64 = k2_inputs(64)
+    a64 = (0.5 * (a64[:, :-1] + a64[:, 1:])).contiguous()
+    k2_b64_ms = graph_ms(lambda: forward_lb(freqs, elevs, a64, z64, n64, t64,
+                                            True))
+    off16 = off_16_bytes(alpha)
+    k2_narrow_ms = [graph_ms(lambda: forward_lb(freqs, elevs, off16, z, n, t,
+                                                False, want_trans))
+                    for want_trans in (False, True)]
+    print(f"phase 4: K2 in a graph: on layer means "
+          f"{graph_times['forward_lb[alpha_is_mid]']:.4f} ms; at the "
+          f"retrieval's B=64 on layer means {k2_b64_ms:.4f} ms; with 4-byte "
+          f"copies on the same B={B} {k2_narrow_ms[0]:.4f} ms, with "
+          f"trans_level {k2_narrow_ms[1]:.4f} ms")
+    del off16, a64, alpha_mid
     for outputs in (("tb",), ("tb", "tau_total", "t_mr", "trans_level")):
         line = []
         for use_kernels in (True, False):
@@ -956,10 +1087,12 @@ def main() -> int:
         0.5 * (alpha_k[:, :-1] + alpha_k[:, 1:])[None]
         * geom["ds"][:, None], 0.5)
     planck_k3 = profiling.planck_series_share(f_chunk, sprof["t"])
+    planck_k2 = profiling.planck_series_share(freqs, t)
     print(f"phase 15: share of layer opacities on the series branch: K2 "
           f"{small_k2:.4f}, K3 {small_k3:.4f} (< 0.03), K5 {series_k5:.4f} "
-          f"(< 0.5); share of K3's (frequency, level, profile) whose Planck "
-          f"radiance the series serves: {planck_k3:.4f}")
+          f"(< 0.5); share of the (frequency, level, profile) whose Planck "
+          f"radiance the series serves: K2 {planck_k2:.4f}, K3 "
+          f"{planck_k3:.4f}")
     nE, nF = len(elevs), len(freqs)
     f_chunk_np = f_chunk.cpu().numpy()
     # name -> (id, ms, the roofline as a function of as_coded)
@@ -967,11 +1100,13 @@ def main() -> int:
         "absorption_lb": ("K1", k1_ms, lambda c: profiling.k1_roofline(
             B * L, freqs, as_coded=c)),
         "forward_lb": ("K2", rows[False][0], lambda c: profiling.k2_roofline(
-            B, L, nF, nE, small_dtau_fraction=small_k2, as_coded=c)),
+            B, L, nF, nE, small_dtau_fraction=small_k2,
+            planck_series_fraction=planck_k2, as_coded=c)),
         "forward_lb[alpha_is_mid]": (
             "K2 mid", k2_mid_ms, lambda c: profiling.k2_roofline(
                 B, L, nF, nE, alpha_is_mid=True,
-                small_dtau_fraction=small_k2, as_coded=c)),
+                small_dtau_fraction=small_k2,
+                planck_series_fraction=planck_k2, as_coded=c)),
         "downwelling_lb": ("K3", k3_ms, lambda c: profiling.k2_roofline(
             BS, L, CHUNK, 1, given_paths=True, small_dtau_fraction=small_k3,
             planck_series_fraction=planck_k3, as_coded=c)),
@@ -1188,38 +1323,16 @@ def main() -> int:
           f"taken here")
     check(np.isfinite(loss1) and abs(first - loss0) <= 1e-3 * loss0 + 1e-9,
           f"distillation loss {loss0} {first} {loss1}")
-    def device_profile(fn, calls, log_dir, n_top=4):
-        """Trace `calls` calls of fn() with `profiling.trace` and sum the
-        device time by kernel: ((name, launches per call, ms per call) of
-        the `n_top` largest, device ms per call, device kernels per call)."""
-        fn()
-        torch.cuda.synchronize()
-        with profiling.trace(str(log_dir)) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = []
-        for event in prof.key_averages():
-            if event.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(event, "self_device_time_total", None)
-            if us is None:
-                us = getattr(event, "self_cuda_time_total", 0.0)
-            rows.append((event.key[:48], event.count / calls,
-                         us * 1e-3 / calls))
-        rows.sort(key=lambda r: -r[2])
-        return (rows[:n_top], sum(r[2] for r in rows),
-                round(sum(r[1] for r in rows)))
-
     for what, fn, calls, ms in (
             ("fast serving", lambda: fast.fast_forward_batch(
                 params, profiles, fcfg), 10, fast_ms),
-            ("retrieval", retrieve_run, 2, None)):
+            ("retrieval", retrieve_run, 2, None),
+            ("the K-matrix", lambda: jacobians.kmatrix_batch_fast(
+                kprofiles, cfg_k, wrt=WRT), 5, kmat_ms)):
         if ms is None:
             ms = timed_ms(fn, repeats=5, warmup=1)
-        top, device_ms, n_kernels = device_profile(
-            fn, calls, ROOT / "build" / "torch_kernels"
-            / f"trace_{what.replace(' ', '_')}")
+        device_ms, n_kernels, top = path_times.device_profile(fn, calls, 4)
+        n_kernels = round(n_kernels)
         if device_ms == 0.0:
             print(f"phase 19: {what}: the profiler saw no device time: idle "
                   f"share not measured")
@@ -1304,9 +1417,11 @@ def main() -> int:
     for row in kernel_rows:
         row["device_ms"] = graph_times.get(row["name"], row["ms"])
     kernel_rows[1].update(
-        launches_fast_path=fast_launches["forward_lb"],
+        launches_fast_path=fast_launches["forward_lb"], body=main_body,
         alpha_is_mid_ms=k2_mid_ms, alpha_is_mid_plain_ms=k2_mid_plain_ms,
-        alpha_is_mid_bound_ms=bounds["forward_lb[alpha_is_mid]"][0])
+        alpha_is_mid_device_ms=graph_times["forward_lb[alpha_is_mid]"],
+        alpha_is_mid_bound_ms=bounds["forward_lb[alpha_is_mid]"][0],
+        narrow_copies_device_ms=k2_narrow_ms[0])
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,13 +108,6 @@ struct SpecLayout {
   }
 };
 
-// num / den by the approximate reciprocal
-__device__ __forceinline__ float ratio(float num, float den) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(den));
-  return num * r;
-}
-
 // ---- pass 1: the per-point state -----------------------------------------
 
 // Block (x, y): 128 points x, and y names what the block computes for them:

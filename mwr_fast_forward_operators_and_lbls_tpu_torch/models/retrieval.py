@@ -20,8 +20,10 @@ factorisation, batched over the profiles; the iterations are a Python loop.
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..ops.tensors import input_device
 from . import fast as fast_mod
 from . import jacobians
 
@@ -59,16 +61,19 @@ def retrieve_batch(params: dict, tb_obs, z_m, p_hpa, t_prior, rho_prior,
       z_m, p_hpa: (B, L) level grids (pressure is taken as known).
       t_prior, rho_prior: (B, L) prior and first-guess profiles.
       lwc_gm3: optional (B, L) cloud liquid, held fixed.
-    All on one device; the work is float32.
+    The work is float32 on the device of `z_m` (`input_device`): a tensor
+    stays where it lies (a CPU tensor asks for the CPU), a numpy array goes
+    to the CUDA card and raises RuntimeError where there is none; the other
+    inputs are moved there.
 
     Returns t, rho (B, L), tb_fit (B, E, C), cost (B, n_iter), the mean
     squared residual [K^2] before each step, and dofs (B,), the degrees of
     freedom for signal tr(Sa K^T S^-1 K) at the solution.
     """
     f32 = torch.float32
-    z, p, t0, rho0 = (torch.as_tensor(v).to(f32)
+    dev = input_device(z_m)
+    z, p, t0, rho0 = (torch.as_tensor(v).to(device=dev, dtype=f32)
                       for v in (z_m, p_hpa, t_prior, rho_prior))
-    dev = z.device
     lwc = (torch.zeros_like(z) if lwc_gm3 is None
            else torch.as_tensor(lwc_gm3).to(device=dev, dtype=f32))
     fcfg = fast_mod.FastConfig(freqs_ghz=config.freqs_ghz,
@@ -136,7 +141,11 @@ def retrieve(params: dict, tb_obs, z_m, p_hpa, t_prior, rho_prior,
     """`retrieve_batch` for one profile: tb_obs (E, C), the others (L,).
     Returns t, rho (L,), tb_fit (E, C), cost (n_iter,) and dofs ()."""
     def lead(a):
-        return None if a is None else torch.as_tensor(a)[None]
+        # a leading axis of one; what is no tensor stays none, so that
+        # `retrieve_batch` resolves the device from what the caller gave
+        if a is None or torch.is_tensor(a):
+            return None if a is None else a[None]
+        return np.asarray(a)[None]
 
     out = retrieve_batch(params, lead(tb_obs), lead(z_m), lead(p_hpa),
                          lead(t_prior), lead(rho_prior), config,

@@ -28,15 +28,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point: without them ctypes passes Python ints as
 # 32-bit C ints and cuts the device pointers.
 SIGNATURES = {
-    # p, t, rho, lwc, o3, freqs, nf, tables, table_size, n_h2o, n_o2, n_o3,
-    # h2o_off, o2_off, o3_off, gl_off, n, out, stream
+    # p, t, rho, lwc, o3, freqs (on the host), nf, tables, table_size, n_h2o,
+    # n_o2, n_o3, h2o_off, o2_off, o3_off, gl_off, n, out, stream
     "mwr_absorption_lb": [_P] * 6 + [_I, _P] + [_I] * 9 + [_P, _P],
+    # nf, table_floats, n_lines
+    "mwr_absorption_resident_warps": [_I] * 3,
     # p, t, rho, lwc, freqs, nf, tables, table_size, n_h2o, n_o2, h2o_off,
     # o2_off, gl_off, n, out, out_dt, out_dr, stream
     "mwr_absorption_tangents_lb": [_P] * 5 + [_I, _P] + [_I] * 7 + [_P] * 4,
-    # cos_el, freqs, alpha, z, n, t, E, F, L, B, alpha_is_mid, hk_ghz,
+    # cos_el64, freqs, alpha, z, n, t, E, F, L, B, alpha_is_mid, hk_ghz,
     # t_cosmic, earth_radius, tb, tau, tmr, trans, stream
     "mwr_forward_lb": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P] * 5,
+    # alpha, E, F, L, B
+    "mwr_forward_lb_copy_bytes": [_P] + [_I] * 4,
     # freqs, alpha, ds, t, E, F, L, B, alpha_is_mid, hk_ghz, t_cosmic, tb,
     # tau, tmr, trans, stream
     "mwr_downwelling_lb": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,
@@ -45,8 +49,8 @@ SIGNATURES = {
     "mwr_absorption_spectral": [_P] * 5 + [_I, _P] + [_I] * 8 + [_P] * 3,
     # n_h2o, n_o2, h2o_slots
     "mwr_absorption_spectral_resident_warps": [_I] * 3,
-    # L, alpha_is_mid
-    "mwr_downwelling_staged_resident_warps": [_I] * 2,
+    # kind, F, L, alpha_is_mid, want_trans, wide
+    "mwr_staged_resident_warps": [_I] * 6,
     # mode, freqs, alpha, da, da2, ds, t, dnl, dk, dn, r0cos, E, F, L, B,
     # hk_ghz, t_cosmic, out, out2, stream
     "mwr_kmatrix_lb": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P] * 3,

@@ -1,12 +1,19 @@
-"""Absorption kernels K1 and K4 (`csrc/absorption.cu`), their wrappers and
-plain versions.
+"""Absorption kernels K1 (`csrc/absorption.cu`) and K4
+(`csrc/absorption_tangents.cu`), their wrappers and plain versions.
 
 `absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km];
 `absorption_tangents_lb` returns alpha with its elementwise partials in T and
-rho (K4, the dual-number mode of K1).  On CPU tensors each runs its plain
-torch version; on CUDA tensors it launches its kernel or raises.
+rho (K4, the same function on dual numbers).  On CPU tensors each runs its
+plain torch version; on CUDA tensors it launches its kernel or raises.
+
+K1 evaluates one merged rational per line from a per-point state, as K6
+does: `_mirrors.absorption_lb_merged` follows its order of operations in
+plain torch and `absorption_lb_float64` is the function in float64 on the
+float32 numbers the kernel reads, so the tests can tell the arithmetic's
+error from the tables'.
 """
 
+import ctypes
 import dataclasses
 import functools
 
@@ -114,6 +121,15 @@ def absorption_lb_reference(freqs, p, t, rho, lwc, model: str = "R24",
                             o3_ppmv=None if o3 is None else o3[None])
 
 
+def absorption_lb_float64(freqs, p, t, rho, lwc, model: str = "R24", o3=None):
+    """The function in float64 on exactly the float32 numbers K1 reads (the
+    points, the channels, the line tables), (F, L, B): differences from it
+    are the arithmetic's."""
+    from . import spectral        # which imports this module
+    return spectral.absorption_spectral_float64(
+        list(freqs), p, t, rho, lwc, model, o3=o3)
+
+
 def absorption_partials_lb(freqs, p, t, rho, lwc, model: str = "R24",
                            wrt=("t", "rho")):
     """alpha (F, L, B) and {name: dalpha/dname (F, L, B)} for each name of
@@ -195,13 +211,17 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
     arrays = dict(p=p, t=t, rho=rho, lwc=lwc)
     if with_o3:
         arrays["o3"] = o3
-    layout, tables, f = _kernel_args(freqs, arrays, model, with_o3, tables)
+    layout, tables = _kernel_args(freqs, arrays, model, with_o3, tables)
     out = torch.empty((len(freqs), *p.shape), dtype=torch.float32,
                       device=p.device)
+    # K1 takes its channels by value: an array on the host, which the C
+    # entry point copies into the kernel's arguments before it returns
+    f = (ctypes.c_float * len(freqs))(*freqs)
     with torch.cuda.device(p.device):
         err = _build.library().mwr_absorption_lb(
             p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
-            o3.data_ptr() if with_o3 else None, f.data_ptr(), len(freqs),
+            o3.data_ptr() if with_o3 else None, ctypes.addressof(f),
+            len(freqs),
             tables.data_ptr(), layout.size, layout.n_h2o, layout.n_o2,
             layout.n_o3, layout.h2o, layout.o2, layout.o3, layout.gl,
             p.numel(), out.data_ptr(),
@@ -215,15 +235,27 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
 absorption_lb.launches = 0
 
 
+def resident_warps(n_channels: int = 14, model: str = "R24",
+                   o3: bool = False) -> int:
+    """Warps of K1 that the current CUDA device keeps resident per SM at
+    `n_channels` channels, from the occupancy calculator."""
+    layout = table_layout(model, o3)
+    warps = _build.library().mwr_absorption_resident_warps(
+        n_channels, layout.size, layout.n_h2o + layout.n_o2 + layout.n_o3)
+    if warps < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-warps}")
+    return warps
+
+
 def _kernel_args(freqs, arrays: dict, model: str, with_o3: bool, tables):
-    """Check the inputs of K1/K4; return the table layout, the packed table
-    (built and cached when `tables` is None) and the channel vector."""
+    """Check the inputs of K1/K4; return the table layout and the packed
+    table (built and cached when `tables` is None)."""
     device = arrays["p"].device
     layout = table_layout(model, with_o3)
     if tables is None:
         tables = line_tables(model, with_o3, device)
     _check_inputs(freqs, arrays, tables, layout)
-    return layout, tables, constant_vector(freqs, torch.float32, device)
+    return layout, tables
 
 
 def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
@@ -238,8 +270,9 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
     """
     if p.device.type == "cpu":
         return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model)
-    layout, tables, f = _kernel_args(freqs, dict(p=p, t=t, rho=rho, lwc=lwc),
-                                     model, False, tables)
+    layout, tables = _kernel_args(freqs, dict(p=p, t=t, rho=rho, lwc=lwc),
+                                  model, False, tables)
+    f = constant_vector(freqs, torch.float32, p.device)
     out = torch.empty((3, len(freqs), *p.shape), dtype=torch.float32,
                       device=p.device)
     with torch.cuda.device(p.device):

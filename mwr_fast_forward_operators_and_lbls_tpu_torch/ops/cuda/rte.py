@@ -7,6 +7,14 @@ optionally trans_level (E, F, L, B).  `downwelling_lb` (K3) maps the same
 absorption, given slant paths (E, L-1, B) and temperatures to the same
 outputs.  On CPU tensors each runs its plain version; on CUDA tensors it
 launches its kernel or raises.
+
+K2 has one body in `csrc/rte.cu`, the staged one: it streams alpha through
+shared memory and computes each chord, in float64, once per block of 16
+profiles and up to 16 channels.  Only the size of its asynchronous copies
+follows alpha's alignment (`forward_lb_body`), the numbers do not.  K3 is
+the same body on given paths, with a body of one thread per (elevation,
+frequency, profile) for the calls the staged one does not take (the
+docstring of `downwelling_lb`).  A launch that is refused raises.
 """
 
 import functools
@@ -25,8 +33,9 @@ def _cos_elevations(elevations, dtype, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _device_cos(elevations: tuple, device) -> torch.Tensor:
-    return _cos_elevations(elevations, torch.float32, device)
+def _device_cos(elevations: tuple, device):
+    """cos(elevation) on `device` in float64, as K2's chords take it."""
+    return _cos_elevations(elevations, torch.float64, device)
 
 
 def forward_lb_reference(freqs, elevations, alpha, z, n, t,
@@ -98,6 +107,30 @@ def _outputs(n_el, n_ch, lev, batch, want_trans_level, device) -> dict:
     return out
 
 
+def forward_lb_body(alpha, n_elevations: int,
+                    alpha_is_mid: bool = False) -> str:
+    """How a call of `forward_lb` on this alpha (F, L or L-1, B) runs:
+    "plain" for a CPU tensor; on the card "staged" when B is a multiple of 4
+    and alpha's first element lies on a 16-byte boundary (any tensor that
+    owns its storage), "staged, 4-byte copies" otherwise: the same body with
+    the same arithmetic, filled by smaller asynchronous copies.  Raises
+    ValueError for a shape the body refuses (more than about 1,700 levels).
+    A pure function of the shape and the pointer."""
+    if alpha.device.type == "cpu":
+        return "plain"
+    n_ch, rows, batch = alpha.shape
+    lev = rows + 1 if alpha_is_mid else rows
+    piece = _build.library().mwr_forward_lb_copy_bytes(
+        alpha.data_ptr(), n_elevations, n_ch, lev, batch)
+    if not piece:
+        raise ValueError(
+            f"the RTE kernel keeps a block's columns in shared memory and "
+            f"takes no shape E={n_elevations} F={n_ch} L={lev}: split the "
+            f"levels or the elevations, or run the plain version "
+            f"(forward_lb_reference)")
+    return "staged" if piece == 16 else "staged, 4-byte copies"
+
+
 def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
                want_trans_level: bool = False):
     """Geometry and multi-elevation downwelling RTE.
@@ -108,6 +141,12 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     extinction when `alpha_is_mid`; z [m], n (refractive index) and t [K]
     are (L, B).  Returns tb, tau_total, t_mr (E, F, B) and, when
     `want_trans_level`, trans_level (E, F, L, B).
+
+    On the card the chords are taken in float64, which at low elevations
+    is closer to float64 than the plain float32 version (at 4.2 degrees TB
+    within 5e-4 K, against 2e-3 K); what the call returns does not depend on
+    alpha's alignment (`forward_lb_body`).  A shape the kernel refuses
+    raises ValueError.
     """
     if alpha.device.type == "cpu":
         return forward_lb_reference(freqs, elevations, alpha, z, n, t,
@@ -117,18 +156,19 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     _check_inputs(f.numel(), alpha, dict(t=t, z=z, n=n), alpha_is_mid)
     lev, batch = t.shape
     n_el, n_ch = len(elevations), f.numel()
-    cos_el = _device_cos(tuple(float(v) for v in elevations), dev)
+    cos_el64 = _device_cos(tuple(float(v) for v in elevations), dev)
     out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
     with torch.cuda.device(dev):
         err = _build.library().mwr_forward_lb(
-            cos_el.data_ptr(), f.data_ptr(), alpha.data_ptr(), z.data_ptr(),
-            n.data_ptr(), t.data_ptr(), n_el, n_ch, lev, batch,
+            cos_el64.data_ptr(), f.data_ptr(), alpha.data_ptr(),
+            z.data_ptr(), n.data_ptr(), t.data_ptr(), n_el, n_ch, lev, batch,
             int(alpha_is_mid), phys.HK_GHZ, phys.T_COSMIC, phys.EARTH_RADIUS,
             out["tb"].data_ptr(), out["tau_total"].data_ptr(),
             out["t_mr"].data_ptr(),
             out["trans_level"].data_ptr() if want_trans_level else None,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
+        forward_lb_body(alpha, n_el, alpha_is_mid)    # names a refused shape
         raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
     forward_lb.launches += 1
     return out
@@ -163,8 +203,8 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
     alpha's first element on a 16-byte boundary (any tensor that owns its
     storage; a contiguous view that starts elsewhere may not be), alpha is
     streamed through shared memory by 16-byte copies.  Every other call
-    takes the body K2 uses, at about twice the time.  Both raise when their
-    launch is refused.
+    takes the body of one thread per (elevation, frequency, profile), at
+    about twice the time.  Both raise when their launch is refused.
     """
     if alpha.device.type == "cpu":
         return downwelling_lb_reference(freqs, alpha, ds_km, t, alpha_is_mid,
@@ -192,11 +232,17 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
 downwelling_lb.launches = 0
 
 
-def staged_resident_warps(n_levels: int, alpha_is_mid: bool = False) -> int:
-    """Warps of K3's staged body that the current CUDA device keeps resident
-    per SM at `n_levels` levels, from the occupancy calculator."""
-    warps = _build.library().mwr_downwelling_staged_resident_warps(
-        n_levels, int(alpha_is_mid))
+def staged_resident_warps(n_levels: int, alpha_is_mid: bool = False,
+                          kernel: str = "K3", n_channels: int = 14,
+                          want_trans_level: bool = False,
+                          wide_copies: bool = True) -> int:
+    """Warps of the staged body that the current CUDA device keeps resident
+    per SM at `n_levels` levels, from the occupancy calculator: K3's, or
+    with kernel="K2" that of `forward_lb` at `n_channels` channels, with
+    16-byte copies or (K2 only) 4-byte ones."""
+    warps = _build.library().mwr_staged_resident_warps(
+        {"K3": 0, "K2": 1}[kernel], n_channels, n_levels, int(alpha_is_mid),
+        int(want_trans_level), int(wide_copies))
     if warps < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-warps}")
     return warps

@@ -10,23 +10,23 @@ launches K6 or raises.  There is no O3 term, as on the TPU.
 K6 is two passes.  The first computes, once per call, what depends on the
 point alone: `line_state` is its plain version and documents the layout.
 The second evaluates one merged rational per line and frequency from that
-state; `absorption_spectral_merged` follows its order of operations in
-plain torch (with IEEE divides), so the CPU tests can hold the arithmetic
+state; `_mirrors.absorption_spectral_merged` follows its order of operations
+in plain torch (with IEEE divides), so the CPU tests can hold the arithmetic
 against float64.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
 
-from ...constants import H2O_MODELS, O2_MODELS
+from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import (h2o_absorption, liquid_absorption, n2_absorption,
-                          o2_absorption, total_absorption)
-from ..absorption.h2o import _GL_W, _GL_X
+                          o2_absorption, o3_absorption, total_absorption)
 from . import _build
-from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, check_points,
-                         line_tables, pack_tables, table_layout)
+from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, O3_FIELDS,
+                         check_points, line_tables, pack_tables, table_layout)
 
 # Bytes of one (frequency, point, line) intermediate of the plain version,
 # which runs in sub-chunks of frequency: a handful of them are live at once,
@@ -79,12 +79,14 @@ def absorption_spectral_reference(f_ghz, p, t, rho, lwc, model: str = "R24",
     return out
 
 
-def absorption_spectral_float64(f_ghz, p, t, rho, lwc, model: str = "R24"):
+def absorption_spectral_float64(f_ghz, p, t, rho, lwc, model: str = "R24",
+                                o3=None):
     """The function on exactly the kernel's inputs, in float64: the points,
     the grid and the line tables as the float32 numbers K6 reads (a line
     centre rounds by up to 1.9 kHz at 60 GHz, which alone moves alpha by
     some 6e-6 of a frequency's maximum where the lines are 30 MHz wide).
-    Differences from it are the arithmetic's."""
+    Differences from it are the arithmetic's.  With `o3` [ppmv] the O3
+    lines are in, as K1 has them."""
     def rounded(tables):
         kw = {}
         for field in dataclasses.fields(tables):
@@ -99,10 +101,16 @@ def absorption_spectral_float64(f_ghz, p, t, rho, lwc, model: str = "R24"):
     p, t, rho, lwc = (a.double()[None] for a in (p, t, rho, lwc))
     f = torch.as_tensor(f_ghz, device=p.device).to(torch.float32).double()
     f = f.reshape((-1,) + (1,) * (p.ndim - 1))
-    return (h2o_absorption(f, p, t, rho, rounded(H2O_MODELS[model]))
-            + o2_absorption(f, p, t, rho, rounded(O2_MODELS[model]))
-            + n2_absorption(f, p - rho * t / 217.0, t, variant=model)
-            + liquid_absorption(f, t, lwc))
+    alpha = (h2o_absorption(f, p, t, rho, rounded(H2O_MODELS[model]))
+             + o2_absorption(f, p, t, rho, rounded(O2_MODELS[model]))
+             + n2_absorption(f, p - rho * t / 217.0, t, variant=model)
+             + liquid_absorption(f, t, lwc))
+    if o3 is not None:
+        lines = types.SimpleNamespace(**{
+            k: getattr(o3_lines, k).astype(np.float32).astype(np.float64)
+            for k in O3_FIELDS})
+        alpha = alpha + o3_absorption(f, p, t, o3.double()[None], lines)
+    return alpha
 
 
 # ---- the state pass: what depends on the point alone ----------------------
@@ -116,7 +124,7 @@ def absorption_spectral_float64(f_ghz, p, t, rho, lwc, model: str = "R24"):
 #     alone and the two parameters of the quadrature;
 #   then per O2 line 5 rows, dnu, c2, dfsq, k2, k3: the pressure shift,
 #     c = 2 (f0 + dnu), the squared width, and the two coefficients of the
-#     merged numerator k2 + q k3 (`absorption_spectral_merged`):
+#     merged numerator k2 + q k3 (`_mirrors.absorption_spectral_merged`):
 #     k2 = s (dfg c^2 - 2 dfsq y c), k3 = s (2 dfg + y c) with s the
 #     strength over f0^2 and y the mixing coefficient.
 STATE_SCALARS = ("con_b", "k_nr", "dfnr2", "o2s", "n2k", "inv_fp", "e01",
@@ -190,101 +198,6 @@ def line_state(p, t, rho, lwc, model: str = "R24") -> dict:
         e12=eps1 - 3.52, wk=-0.06286 * lwc)
     return {"scalars": {k: v[..., 0] for k, v in scalars.items()},
             "h2o": lines_h2o, "o2": lines_o2}
-
-
-def absorption_spectral_merged(f_ghz, p, t, rho, lwc, model: str = "R24"):
-    """K6's main pass in plain torch, in its order of operations: the state
-    of `line_state`, then one rational per line and frequency in
-    q = d1 d2 + w^2, where d1 = (f - f0) - dnu is the distance to the
-    (shifted) line centre, d2 = d1 + c that to its mirror image, c =
-    2 (f0 + dnu) and w the width.  With A = d1^2 + w^2 and B = d2^2 + w^2
-    the two Lorentzian halves n1 / A + n2 / B of an O2 line are
-    (n1 B + n2 A) / (A B), and A + B = c^2 + 2 q, A B = q^2 + w^2 c^2,
-    n1 B + n2 A = k2 + q k3 with the per-point coefficients k2, k3 of
-    `line_state`; an H2O line inside the cutoff on both sides is the same
-    with n1 = n2.  Two O2 lines share one divide, (n_a D_b + n_b D_a) /
-    (D_a D_b), and an odd line out goes alone.  Then the line sums
-    times f^2, and the liquid term from two reciprocals.  Divides are IEEE
-    here; the kernel takes an approximate reciprocal in the line loops.
-    Returns (F, *shape).
-
-    q is formed from the difference d1 and never expanded in f: as
-    (f^2 - (c / 2)^2) + w^2 it cancels at the line centres aloft.
-    """
-    _check_model(model)
-    lay = table_layout(model, False)
-    table = torch.as_tensor(pack_tables(model, False), dtype=p.dtype,
-                            device=p.device)
-    cut = table[HEADER_FIELDS.index("cutoff")]
-    fdep_on = bool(table[HEADER_FIELDS.index("n2_fdep")] != 0.0)
-    fl = table[lay.h2o:lay.h2o + lay.n_h2o]
-    f0 = table[lay.o2:lay.o2 + lay.n_o2]
-    h2o = H2O_MODELS[model]
-    sd = (np.asarray(h2o.w2) != 0.0) | (np.asarray(h2o.ws2) != 0.0)
-    st = line_state(p, t, rho, lwc, model)
-    f = torch.as_tensor(f_ghz, dtype=p.dtype, device=p.device)
-    f = f.reshape((-1,) + (1,) * p.ndim)
-
-    acc_h2o = torch.zeros((f.shape[0], *p.shape), dtype=p.dtype,
-                          device=p.device)
-    for line in range(lay.n_h2o):
-        wsq, sw, sb, sn, c0, gamma2 = (
-            st["h2o"][k][..., line][None]
-            for k in ("wsq", "sw", "sb", "sn", "c0", "gamma2"))
-        d1, d2 = f - fl[line], f + fl[line]
-        a, b = d1 * d1 + wsq, d2 * d2 + wsq
-        near_in, far_in = d1.abs() < cut, d2.abs() < cut
-        if sd[line]:
-            near = torch.zeros_like(acc_h2o)
-            for x_k, w_k in zip(_GL_X, _GL_W):
-                cr = c0 + gamma2 * float(x_k)
-                near = near + (sn * float(w_k) * cr) / (cr * cr + d1 * d1)
-        else:
-            near = sw / a
-        apart = (torch.where(near_in, near - sb, 0.0)
-                 + torch.where(far_in, sw / b - sb, 0.0))
-        # both halves as one rational in q = d1 d2 + w^2, with c = 2 fl:
-        # A + B = c^2 + 2 q and A B = q^2 + w^2 c^2
-        csq = 4.0 * fl[line] * fl[line]
-        q = d1 * d2 + wsq
-        both = ((sw * csq + q * (2.0 * sw)) / (q * q + wsq * csq)
-                - 2.0 * sb)
-        acc_h2o = acc_h2o + torch.where(
-            near_in & far_in & (not sd[line]), both, apart)
-
-    def o2_rational(line):
-        """Numerator and denominator of one O2 line's merged halves."""
-        dnu, c2, dfsq, k2, k3 = (
-            st["o2"][k][..., line][None]
-            for k in ("dnu", "c2", "dfsq", "k2", "k3"))
-        d1 = (f - f0[line]) - dnu
-        q = d1 * (d1 + c2) + dfsq
-        return k2 + q * k3, q * q + dfsq * (c2 * c2)
-
-    acc_o2 = torch.zeros_like(acc_h2o)
-    paired = lay.n_o2 - lay.n_o2 % 2
-    for line in range(0, paired, 2):
-        (na, da), (nb, db) = o2_rational(line), o2_rational(line + 1)
-        acc_o2 = acc_o2 + (na * db + nb * da) / (da * db)
-    for line in range(paired, lay.n_o2):
-        num, den = o2_rational(line)
-        acc_o2 = acc_o2 + num / den
-
-    sc = {k: v[None] for k, v in st["scalars"].items()}
-    f2 = f * f
-    h2o_term = f2 * (acc_h2o + sc["con_b"])
-    nonres = sc["k_nr"] * f2 / (f2 + sc["dfnr2"])
-    o2_term = torch.clamp_min(sc["o2s"] * (nonres + f2 * acc_o2), 0.0)
-    fdep = (0.5 + 0.5 / (1.0 + (f / 450.0) * (f / 450.0)) if fdep_on
-            else torch.ones_like(f))
-    n2_term = sc["n2k"] * (fdep * f2)
-    u = f * sc["inv_fp"]
-    v = u * (1.0 / 39.8)
-    ru, rv = 1.0 / (1.0 + u * u), 1.0 / (1.0 + v * v)
-    re = 3.52 + sc["e01"] * ru + sc["e12"] * rv
-    im = -(sc["e01"] * (u * ru) + sc["e12"] * (v * rv))
-    aimag = 3.0 * im / ((re + 2.0) * (re + 2.0) + im * im)
-    return h2o_term + o2_term + n2_term + sc["wk"] * (aimag * f)
 
 
 def _launch(f_ghz, p, t, rho, lwc, model, f_range, lines=True):

@@ -18,35 +18,44 @@ What is counted.  The bound is one of the function, not of the body under
 `csrc/` that computes it today.  The formulas are those of the bodies, but
 each quantity is charged once, on the indices it depends on: the Planck
 radiance per (channel, level, profile) and the chord per (elevation, layer,
-profile), although the RTE kernels recompute both in every (elevation,
-channel, profile) thread; a line's width and strength once per point (K6
-does so in its state pass); what depends on the frequency grid alone
-(f - f_line, (f / f_line)^2, the continuum's frequency factor) once per
-call, although every thread of K6 forms f - f_line again.
+profile), although K3's one-thread-per-column body recomputes the radiance
+in every (elevation, frequency, profile) thread; a line's
+width and strength once per point (K1 and K6 do so); what depends on the
+line table alone (1 / f_line, 1 / f_line^2) once per call and line; what
+depends on the frequency grid alone (f - f_line, (f / f_line)^2, the
+continuum's frequency factor) once per call, although every thread of K1
+and K6 forms f - f_line again.
 
 The line shapes are charged in the cheapest form known that holds the
 accuracy.  On floats (K1, K6) a line's two halves a / A + b / B are the one
 rational (k2 + q k3) / (q^2 + k1) in q = d1 d2 + w^2 (K6's main pass,
-`csrc/absorption_spectral.cu`, has the algebra): the coefficients once per
+`csrc/absorption_spectral.cu`, has the algebra; K1's body is the same): the coefficients once per
 (point, line), and d1 d2 of an H2O line, which has no pressure shift, on
 the grid alone.  Two O2 lines share one divide, (n_a D_b + n_b D_a) /
 (D_a D_b): the denominators are sums of squares under 1e13, so the product
 stays in range; no more lines are merged than that (each merge squares the
 range), and H2O lines, whose cutoff tests differ from line to line, are not
 paired.  The strengths carry 1 / f_line^2 and the sums are multiplied by
-f^2 once per (point, frequency).  A qSD node's c_r, its weight times c_r
+f^2 once per (point, frequency).  All powers of a point have the one base
+300 / T, so a^x is charged as exp2(x log2 a): one logarithm per point and
+one exponential per power, as K1 takes them (the multiply is left out, which
+keeps the fp32 count where it was); K4 and K6 call powf, a logarithm and an
+exponential each time.  A qSD node's c_r, its weight times c_r
 and c_r^2 are charged once per (point, line, node).  On K4's dual numbers
 the merged forms cost more than they save, so there the halves stay apart
 and the count is that of the formulas as written.  Where u = x / T < 0.25
 the Planck radiance x / expm1(u) of a level may be taken as its series
 T (1 - u / 2 + u^2 / 12 - u^4 / 720), exact in float32 there: no
-exponential and one divide less for seven more instructions of the fp32
-pipe.  `k2_roofline` charges the share `planck_series_fraction` of the
-(channel, level, profile) so (`planck_series_share` finds what share of a
-run's data has u < 0.25: all of it for a microwave channel at atmospheric
-temperatures); at its default 0.0 every level is charged the exponential,
-which is the lower count where the fp32 pipe bounds the function, as it
-does for K2 at the published peaks.  A transmittance is charged one
+exponential and one divide less for about ten more instructions of the fp32
+pipe.  Neither form is the cheaper in every resource, so the function is
+charged the lesser of the two in each: `k2_roofline` charges the share
+`planck_series_fraction` of the (channel, level, profile)
+(`planck_series_share` finds what share of a run's data has u < 0.25: all
+of it for a microwave channel at atmospheric temperatures) the series' one
+divide and no exponential, and none of its fp32 instructions, which the
+closed form does without.  The fp32 count is so the same at every share,
+and the bound of a function that the fp32 pipe bounds, as it does K2 at the
+published peaks, does not move with it.  A transmittance is charged one
 exponential per (elevation, channel, layer, profile).
 
 With `as_coded=True` every function returns instead what its body under
@@ -292,7 +301,8 @@ def _charge(body: dict, cost: dict, times: dict) -> _Ops:
     return total
 
 
-# ---- K1, K4: the absorption body (csrc/absorption.cuh); K6's is below -----
+# ---- K4's absorption body (csrc/absorption_tangents.cu) and the function's
+# ---- counts; K1's and K6's bodies are below
 #
 # Each operation of the body by kind.  f* are operations on plain floats
 # (the same in every mode); v* are operations on the body's value type V:
@@ -311,6 +321,8 @@ _FLOAT = {
     "vexp": _Ops(exp=1), "vpow": _Ops(exp=2), "vmax0": _Ops(other=1),
     "vsel": _Ops(other=1),
 }
+# one power of a point's shared base, given its logarithm (K1's body)
+_FLOAT["fpw"] = _Ops(exp=1, mul=1)
 _DUAL = dict(
     _FLOAT,
     vmul=_Ops(mul=5, add=2), vmuls=_Ops(mul=3), vadd=_Ops(add=3),
@@ -320,6 +332,12 @@ _DUAL = dict(
     vpow=_Ops(exp=2, div=1, mul=3), vmax0=_Ops(other=4),
     vsel=_Ops(other=3))
 
+# What the function is charged: a power is one exponential, the point's one
+# logarithm is charged apart ("point_log").
+_FLOAT_NEEDED = dict(_FLOAT, fpow=_Ops(exp=1), vpow=_Ops(exp=1))
+_DUAL_NEEDED = dict(_DUAL, fpow=_Ops(exp=1),
+                    vpow=_Ops(exp=1, div=1, mul=3))
+
 _QSD_NODE = "vmuls vadd vmul vadds vmuls vdiv vadd "
 _POINT = ("sdivv vadds vmul vdivs rsub vpow fmul vmuls*2 "
           "vpow*2 vmuls*2 vmul*2 vadd vmul "
@@ -327,8 +345,9 @@ _POINT = ("sdivv vadds vmul vdivs rsub vpow fmul vmuls*2 "
           "vmul*2 vmuls vmul vpow "
           "rsub vmuls rsub vmuls vmuls vexp vmuls vmuls vadd vadds")
 _FDEP = "fdiv fmul fadd fdiv fadd cmp"
-# What the body of K1 and K4 executes: one thread per point evaluates all
-# channels, its "tile".
+# What the body of K4 executes (K1's own body on floats is `_K1_CODED`): one
+# thread per point evaluates all channels, its "tile", every Lorentzian half
+# with a divide of its own.
 _ABSORPTION_CODED = {
     # once per (point, tile): ti, th1, pvap, pda, ti25, cut2, h2o_scale,
     # con_b; the O2 block's b, den, pe2, dfnr, ybase; ti3; the dry
@@ -384,6 +403,14 @@ _ABSORPTION_NEEDED = dict(
     # once per point; beside the body's: 1 / fp, dfnr^2, n2_b n2_t and
     # o2_scale pda ti3, which the body forms per channel
     point=_POINT + " sdivv vmul*2 vmuls",
+    # 1 / f_line hangs on the table alone: once per call and line, not per
+    # point as the body forms it
+    h2o_line=_ABSORPTION_CODED["h2o_line"].removesuffix(" fdiv"),
+    o2_line=_ABSORPTION_CODED["o2_line"].removesuffix(" fdiv"),
+    o3_line=_ABSORPTION_CODED["o3_line"].removesuffix(" fdiv"),
+    line_grid="fdiv",
+    # log2(300 / T), once per point, for all its powers
+    point_log="fexp",
     # per (frequency, H2O line) on the grid alone: df1, df2, the cutoff
     # tests, (f / fl)^2; per half inside the cutoff: df^2
     h2o_grid="fadd*2 cmp*2 fmul*2", h2o_grid_half="fmul",
@@ -425,7 +452,7 @@ _ABSORPTION_NEEDED_FLOAT = dict(
     # more per (point, H2O line): the strength with the density scale and
     # 1 / fl^2, times the width and times the base; k1, k2, k3; the running
     # sum of the bases
-    h2o_line=_ABSORPTION_CODED["h2o_line"] + " vmul vmuls vmul*4 vmuls vadd",
+    h2o_line=_ABSORPTION_NEEDED["h2o_line"] + " vmul vmuls vmul*4 vmuls vadd",
     h2o_sd_line=_ABSORPTION_CODED["h2o_sd_line"] + " " + _QSD_NODE_SETUP * 16,
     # per (frequency, H2O line) on the grid alone: d1, d2, the cutoff tests,
     # d1 d2; per half inside the cutoff: d^2
@@ -439,8 +466,10 @@ _ABSORPTION_NEEDED_FLOAT = dict(
     h2o_sd_half="vadds vdiv vadd " * 16,
     # more per (point, O2 line): c = 2 (f0 + dnu), the strength over f0^2,
     # its products with dfg and with y c, k1, k2, k3
-    o2_line=(_ABSORPTION_CODED["o2_line"]
+    o2_line=(_ABSORPTION_NEEDED["o2_line"]
              + " vadds vmuls*2 vmul*7 vadd*2 vmuls"),
+    # 1 / f_line^2 per line of the table
+    line_grid="fmul fdiv",
     # per (frequency, O2 line) on the grid alone: f - f0
     o2_grid="fadd",
     # per (point, frequency, O2 line): d1, d2, q, the numerator, the
@@ -557,13 +586,84 @@ def _k6_coded_ops(n_points, freqs, model, n_h2o_lines=None,
     return total
 
 
+# What K1's body executes (csrc/absorption.cu), on floats: a thread per
+# point forms each line's state and spends it on all channels at once.  The
+# arithmetic is K6's, so most entries are K6's; those that differ:
+_K1_THREADS = 128   # points per block (kPointThreads)
+_K1_CODED = dict(
+    _K6_CODED,
+    # per block: the table's 1 / f_line^2 per line, the dry continuum's
+    # factor per channel
+    block_line="fmul fdiv", block_channel=_FDEP,
+    # per point: K6's list with each power as exp2f(x log2 ti), and the
+    # logarithm
+    point=_K6_CODED["point"].replace("fpow", "fpw") + " fexp",
+    # per (point, channel): the span of the channels, for the cutoff tests
+    span="cmp*2",
+    # per (point, H2O line): tix, tixs, width, wsq, s, base, sn (1 / fl^2 is
+    # the block's), sw, sb, the two tests of `sd`, the four of the span
+    h2o_line=("fpw*2 fmul*4 fadd fmul fadd fmul fexp fmul*2 fadd fdiv "
+              "fmul*4 cmp*2 fadd*4 cmp*4"),
+    # per (point, H2O line merged for all channels): c^2, k1, k2, k3, 2 sb
+    h2o_line_both=_K6_CODED["tile_h2o_both"],
+    # per (point, qSD line): gamma2, c0, and per node cr, crw, cr^2
+    h2o_sd_line="fmul*4 fadd fmul fadd " + (_K6_CODED["tile_sd_node"] + " ") * 16,
+    # per (point, O2 line): df, sn (1 / f0^2 is the block's), dfg, dnu, c2,
+    # dfsq, dfg_s, yc, k1, k2, k3
+    o2_line=("fmul fmul fexp fmul*2 fmul fadd fmul fadd fmul "
+             "fmul fadd fmul fadd fmul fmul fmul fadd fmul*3 "
+             "fmul*2 fmul*3 fadd fmul fadd"),
+    # O3: the density scale per point; per (point, line) width, wsq, s, sw,
+    # c^2, k1, k2, k3; per (point, channel, line) the merged rational
+    o3_point="fmul*3 fdiv",
+    o3_line="fpw fmul*2 fmul fadd fmul fexp fmul*2 fmul*3 fmul*2 fmul*3",
+    o3_pair=_K6_CODED["h2o_both"],
+)
+
+
+def _k1_coded_ops(n_points, freqs, model, with_o3=False, n_h2o_lines=None,
+                  n_o2_lines=None) -> _Ops:
+    """Operations of K1's body over `n_points` points at the channels
+    `freqs`: a non-qSD H2O line is merged where every channel lies inside
+    the cutoff on both sides, and two O2 lines share a reciprocal."""
+    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
+    f = np.asarray(freqs, np.float64).reshape(-1)
+    fl = np.asarray(h2o.fl, np.float64)[:n_h2o_lines]
+    sd = ((np.asarray(h2o.w2) != 0) | (np.asarray(h2o.ws2) != 0))[:fl.size]
+    n_o2 = np.asarray(o2.f)[:n_o2_lines].size
+    n_o3 = o3_lines.O3_FL.size if with_o3 else 0
+    nf = f.size
+    near = np.abs(f[:, None] - fl[None, :]) < h2o.cutoff_ghz     # (F, lines)
+    far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
+    merged = (near & far).all(axis=0) & ~sd                      # (lines,)
+    apart = ~merged
+    per_point = {
+        "point": 1, "span": nf, "h2o_line": fl.size,
+        "h2o_line_both": merged.sum(), "h2o_sd_line": int(sd.sum()),
+        "o2_line": n_o2, "h2o_both": nf * merged.sum(),
+        "h2o_apart": nf * apart.sum(),
+        "h2o_near": near[:, apart & ~sd].sum(),
+        "h2o_far": far[:, apart].sum(),
+        "h2o_sd_node": near[:, sd].sum() * 16,
+        "h2o_sd_near": near[:, sd].sum(),
+        "o2_rational": nf * n_o2, "o2_two": nf * (n_o2 // 2),
+        "o2_one": nf * (n_o2 % 2), "channel": nf,
+        "o3_point": with_o3, "o3_line": n_o3, "o3_pair": nf * n_o3,
+        "block_line": (fl.size + n_o2 + n_o3) / _K1_THREADS,
+        "block_channel": nf / _K1_THREADS}
+    total = _Ops()
+    total.add_scaled(_charge(_K1_CODED, _FLOAT, per_point), n_points)
+    return total
+
+
 def _absorption_ops(n_points, freqs, model, cost, with_o3=False,
                     n_h2o_lines=None, n_o2_lines=None,
                     as_coded=False) -> _Ops:
     """Operations of the absorption function over `n_points` points and the
     frequencies `freqs`, on floats or (`cost` = _DUAL) on K4's dual numbers
-    (as coded: of K1's and K4's body, which sets a point and its lines up
-    once for all channels).  The Clough-cutoff
+    (as coded: of K4's body, which sets a point and its lines up once for
+    all channels and divides every Lorentzian half apart; K1's own body is
+    counted by `_k1_coded_ops`).  The Clough-cutoff
     branches are counted for these frequencies:
     a Lorentzian half is evaluated where |f -+ f_line| lies under the
     release's cutoff."""
@@ -585,11 +685,15 @@ def _absorption_ops(n_points, freqs, model, cost, with_o3=False,
         per_point.update(h2o_pair=nf * fl.size, h2o_half=halves,
                          o2_pair=nf * n_o2, channel_fdep=nf * fdep)
     else:
-        per_call = {"h2o_grid": nf * fl.size,
+        dual = cost is _DUAL
+        cost = _DUAL_NEEDED if dual else _FLOAT_NEEDED
+        per_point["point_log"] = 1
+        per_call = {"line_grid": fl.size + n_o2 + n_o3,
+                    "h2o_grid": nf * fl.size,
                     "h2o_grid_half": near.sum() + far.sum(),
                     "o2_grid": nf * n_o2, "o3_grid": nf * n_o3,
                     "channel_grid": nf, "channel_fdep": nf * fdep}
-        if cost is _DUAL:
+        if dual:
             body = _ABSORPTION_NEEDED
             per_point.update(h2o_pair=nf * fl.size, h2o_half=halves,
                              o2_pair_apart=nf * n_o2)
@@ -624,8 +728,10 @@ def k1_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
     (at most 16).  Reads p, T, rho, LWC (and O3), the table and the
     channels; writes alpha."""
     f = np.asarray(freqs, np.float64).reshape(-1)
-    ops = _absorption_ops(n_points, f, model, _FLOAT, with_o3,
-                          n_h2o_lines, n_o2_lines, as_coded)
+    ops = (_k1_coded_ops(n_points, f, model, with_o3, n_h2o_lines,
+                         n_o2_lines) if as_coded else
+           _absorption_ops(n_points, f, model, _FLOAT, with_o3,
+                           n_h2o_lines, n_o2_lines))
     n_in = 5 if with_o3 else 4
     return ops.roofline(4.0 * n_points * (n_in + f.size) + 4 * f.size
                         + _table_bytes(model, with_o3, n_h2o_lines,
@@ -670,25 +776,22 @@ _PLANCK_SERIES = "fdiv fmul cmp fmul*2 fadd fmul fadd fmul fadd fmul"
 _CHORD = ("fadd fadd fmul fdiv fadd*2 fmul cmp fdiv "
           "fadd*2 fmul cmp fdiv fadd*2 fmul fadd cmp fdiv fmul")
 _RTE_TAIL = "fmul fadd fdiv*2 fexp fadd cmp fdiv fdiv*2 fexp"   # tb, t_mr
-# What the body executes: one thread per (elevation, channel, profile)
-# walks the layers.
+# What the bodies execute.  K3's other body: one thread per (elevation,
+# frequency, profile) walks the layers.
 _RTE_CODED = {
     # per thread: x; planck of level 0 and of the cosmic background; the
     # tail (tb, tau, t_mr)
     "thread": f"fmul {_PLANCK} {_PLANCK} {_RTE_TAIL}",
-    # per thread of K2: r_bot and the Snell invariant
-    "thread_chord": "fadd fmul*2",
     # per (thread, layer): d, ctau, expf, planck of the top, the
     # small-opacity test, the emission sum
     "layer": f"fmul fadd fexp {_PLANCK} cmp fmul*2 fadd*3",
-    # per (thread, layer) of K2: the chord
-    "layer_chord": _CHORD,
     # per (thread, layer) on level alpha: the layer mean
     "layer_mean": "fadd fmul",
     # per (thread, layer) below an opacity of 0.03 (the series), and above
     "layer_small": "fmul*7 fadd*4",
     "layer_large": "fadd*2 fdiv",
-    # K3's staged body.  Per thread: x; planck of the cosmic background; the
+    # The staged body (K2 always; K3 without trans_level on a batch that is
+    # a multiple of 4).  Per thread: x; planck of the cosmic background; the
     # tail
     "staged_thread": f"fmul {_PLANCK} {_RTE_TAIL}",
     # per (thread, layer): d, ctau, expf, the small-opacity test, the
@@ -697,13 +800,23 @@ _RTE_CODED = {
     # per (thread, level): planck, by its series or with expm1f
     "staged_level_series": _PLANCK_SERIES,
     "staged_level": _PLANCK,
+    # K2's staged body, per block of up to 16 channels: the Snell invariant
+    # per (elevation, profile), the chord per (elevation, layer, profile)
+    "staged_path": "fadd fmul*2",
+    "staged_chord": _CHORD,
+    # and per (thread, layer) both forms of the emission factors, the
+    # quotient by a reciprocal, and the two selects, in place of the branch
+    "staged_layer_select": "fmul*8 fadd*6 fdiv cmp*2",
 }
+_K2_BLOCK_CHANNELS = 16     # two a warp, kChordWarps = 8, csrc/rte.cu
 # What the function needs: each quantity on the indices it depends on.
 _RTE_NEEDED = dict(
     _RTE_CODED,
     freq=f"fmul {_PLANCK}",        # per channel: x, the cosmic background
     level=_PLANCK,                 # per (channel, level, profile)
-    level_series=_PLANCK_SERIES,   # the same where x / t < 0.25
+    # the same where x / t < 0.25: the series' one divide, no exponential,
+    # and as few fp32 instructions as the closed form (none)
+    level_series="fdiv",
     level_step="fadd",             # per (channel, layer, profile): dB
     path="fadd fmul*2",            # per (elevation, profile)
     chord=_CHORD,                  # per (elevation, layer, profile)
@@ -728,31 +841,40 @@ def k2_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
     depends on the data (1.0 for a thin atmosphere); `small_dtau_share`
     computes it from a run's inputs.  `planck_series_fraction` is the share
     of (channel, level, profile) with x / T < 0.25, whose Planck radiance
-    needs no exponential (`planck_series_share`).  As coded, K3 without
-    trans_level on a batch that is a multiple of 4 is its staged body,
-    which takes that share of the levels by the series; the body shared
-    with K2 takes none.
+    needs no exponential and one divide less (`planck_series_share`); the
+    function's fp32 count does not depend on it.  As coded, K2 and, on a
+    batch that is a multiple of 4 without trans_level, K3 are the staged
+    body, which takes that share of the levels by the series and, for K2,
+    forms each chord once per block of up to 16 channels (in float64,
+    counted here as the same operations) and computes both forms of a
+    layer's emission factors, whatever its opacity; K3's other body takes
+    no level by the series.
     """
     threads = float(batch) * n_channels * n_elevations
     layers = threads * (n_levels - 1)
     times = {"thread": threads, "layer": layers,
              "layer_small": layers * small_dtau_fraction,
              "layer_large": layers * (1.0 - small_dtau_fraction)}
-    if as_coded and given_paths and not want_trans_level and batch % 4 == 0:
-        # K3's staged body (csrc/rte.cu::staged_takes); blocks of 32 profiles
+    if as_coded and not (given_paths
+                         and (want_trans_level or batch % 4 != 0)):
+        # the staged body (csrc/rte.cu::staged_takes); blocks of 32 profiles
         body = _RTE_CODED
         levels = threads * n_levels
+        blocks = (0 if given_paths else
+                  float(batch) * n_elevations
+                  * -(-n_channels // _K2_BLOCK_CHANNELS))
         times = {"staged_thread": threads, "staged_layer": layers,
+                 "staged_path": blocks,
+                 "staged_chord": blocks * (n_levels - 1),
                  "staged_level_series": levels * planck_series_fraction,
                  "staged_level": levels * (1.0 - planck_series_fraction),
                  "layer_mean": layers * (not alpha_is_mid),
-                 "layer_small": times["layer_small"],
-                 "layer_large": times["layer_large"]}
+                 "layer_small": times["layer_small"] * given_paths,
+                 "layer_large": times["layer_large"] * given_paths,
+                 "staged_layer_select": layers * (not given_paths)}
     elif as_coded:
         body = _RTE_CODED
-        times.update(thread_chord=threads * (not given_paths),
-                     layer_chord=layers * (not given_paths),
-                     layer_mean=layers * (not alpha_is_mid))
+        times.update(layer_mean=layers * (not alpha_is_mid))
     else:
         body = _RTE_NEEDED
         fields = float(batch) * n_channels          # (channel, profile)

@@ -22,6 +22,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
     total_absorption)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+    _mirrors as mirrors)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     absorption as k1)
 
 torch.set_num_threads(1)
@@ -237,3 +239,86 @@ def test_tangent_wrapper_takes_the_plain_version_on_cpu():
     for g, w in zip(got, want):
         assert g.shape == (len(FREQS), 30, 2) and g.dtype == torch.float32
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# ---- K1's arithmetic: the merged rationals on a per-point line state ----
+
+@pytest.fixture(scope="module")
+def levels96():
+    """(L, B) float32 levels of the 96-level demo_batch(4), with AFGL O3."""
+    lev = {k: v.T.contiguous()
+           for k, v in lbl.demo_batch(4, 96, device="cpu").items()}
+    lev["o3"] = lbl._afgl_o3(lev["z"])
+    return lev
+
+
+def _share_of_max(got, ref):
+    """max |got - ref| as a share of each channel's largest |ref|."""
+    return float(((got.double() - ref.double()).abs().amax(dim=(1, 2))
+                  / ref.abs().amax(dim=(1, 2))).max())
+
+
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_merged_arithmetic_holds_float64(levels96, model, with_o3):
+    """K1's order of operations in float32 (per-point state, one rational
+    in q per line, two O2 lines per divide, f^2 last) against the function
+    in float64 on the float32 tables: 5e-6 of each channel's largest alpha,
+    the gate the kernel is held to on the card."""
+    args = [levels96[k] for k in ("p", "t", "rho", "lwc")]
+    o3 = levels96["o3"] if with_o3 else None
+    got = mirrors.absorption_lb_merged(FREQS, *args, model, o3=o3)
+    want = k1.absorption_lb_float64(FREQS, *args, model, o3=o3)
+    assert got.dtype == torch.float32 and want.dtype == torch.float64
+    assert got.shape == want.shape == (len(FREQS), 96, 4)
+    assert _share_of_max(got, want) <= 5e-6
+    # and in float64 it is the function, to rounding: the algebra is exact
+    exact = mirrors.absorption_lb_merged(FREQS, *(a.double() for a in args), model,
+                                    o3=None if o3 is None else o3.double())
+    plain = k1.absorption_lb_reference(
+        FREQS, *(a.double() for a in args), model,
+        o3=None if o3 is None else o3.double())
+    assert _share_of_max(exact, plain) <= 1e-12
+
+
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_merged_arithmetic_matches_jax_xla(levels96, model, with_o3):
+    """The same against the JAX package's XLA absorption on the same numpy
+    inputs: per channel 1e-4 of the largest alpha, as the plain version."""
+    lev = {k: v.numpy() for k, v in levels96.items()}
+    o3 = levels96["o3"] if with_o3 else None
+    want = np.asarray(jax_total_absorption(
+        jnp.asarray(FREQS, jnp.float32)[:, None, None], lev["p"][None],
+        lev["t"][None], lev["rho"][None], lev["lwc"][None], model=model,
+        o3_ppmv=None if o3 is None else lev["o3"][None]))
+    got = mirrors.absorption_lb_merged(
+        FREQS, *(levels96[k] for k in ("p", "t", "rho", "lwc")), model, o3=o3)
+    assert _share_of_max(got, torch.tensor(want)) <= 1e-4
+
+
+def test_merged_o3_lines_are_the_plain_o3_term(levels96):
+    """What O3 adds in K1's form (one rational per line, the density scale
+    in the strength) is the plain O3 term: 1e-5 of its largest value."""
+    args = [levels96[k].double() for k in ("p", "t", "rho", "lwc")]
+    o3 = levels96["o3"].double()
+    added = (mirrors.absorption_lb_merged(FREQS, *args, "R24", o3=o3)
+             - mirrors.absorption_lb_merged(FREQS, *args, "R24"))
+    want = (k1.absorption_lb_reference(FREQS, *args, "R24", o3=o3)
+            - k1.absorption_lb_reference(FREQS, *args, "R24"))
+    assert float(want.max()) > 0.0
+    assert float((added - want).abs().max()) <= 1e-5 * float(want.max())
+
+
+@pytest.mark.parametrize("freqs", [(22.24,), (22.24, 900.0), (183.31, 760.0)],
+                         ids=["one", "span_leaves_cutoff", "submm"])
+def test_merged_arithmetic_under_the_cutoff_tests(levels96, freqs):
+    """A line is merged only where all channels lie inside the cutoff on both
+    sides; with a channel outside, every channel takes the halves apart.
+    Either way the function in float64 is met to 5e-6."""
+    args = [levels96[k] for k in ("p", "t", "rho", "lwc")]
+    for model in ("R24", "R20SD"):
+        got = mirrors.absorption_lb_merged(freqs, *args, model)
+        want = k1.absorption_lb_float64(freqs, *args, model)
+        assert got.shape == (len(freqs), 96, 4)
+        assert _share_of_max(got, want) <= 5e-6, model

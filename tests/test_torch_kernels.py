@@ -21,15 +21,16 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
     n2_absorption)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import _build
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
-    absorption_lb, absorption_lb_reference, absorption_tangents_lb,
-    absorption_tangents_lb_reference)
+    absorption_lb, absorption_lb_float64, absorption_lb_reference,
+    absorption_tangents_lb, absorption_tangents_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
     kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
     kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
     OPS as CHAIN_OPS, chain, chain_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
-    downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_reference)
+    downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_body,
+    forward_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     spectral as k6)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (
@@ -104,8 +105,149 @@ def test_rte_kernel_matches_plain(device, batch, want_trans, alpha_is_mid):
     torch.testing.assert_close(got["tau_total"], want["tau_total"],
                                rtol=1e-4, atol=0)
     if want_trans:
-        assert float((got["trans_level"] - want["trans_level"])
+        # the kernel forms its chords in float64 and is held to the plain
+        # version in float64 on the same inputs; the plain float32 version
+        # itself is 1.2e-5 off that at 4.2 degrees
+        want = forward_lb_reference(
+            FREQS, ELEVS, alpha.double(), prof["z"].double(), n.double(),
+            prof["t"].double(), alpha_is_mid, want_trans)
+        assert float((got["trans_level"].double() - want["trans_level"])
                      .abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+@pytest.mark.parametrize("model", ["R24", "R20SD", "R03"])
+@pytest.mark.parametrize("n_channels", [1, 7, 14, 16])
+def test_absorption_kernel_channel_counts(device, n_channels, model, with_o3):
+    """K1 at F channels on 37 x 67 points (not a multiple of the block's 128
+    nor of 32), against its plain version (1e-4 of each channel's largest
+    alpha) and against the function in float64 on the float32 tables
+    (5e-6)."""
+    prof = _levels(67, 37, device)
+    freqs = tuple(torch.linspace(22.24, 58.0, n_channels).tolist())
+    o3 = lbl._afgl_o3(prof["z"]) if with_o3 else None
+    args = (freqs, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
+    got = absorption_lb(*args, o3=o3)
+    want = absorption_lb_reference(*args, o3=o3)
+    want64 = absorption_lb_float64(*args, o3=o3)
+    torch.cuda.synchronize()
+    assert got.shape == (n_channels, 37, 67)
+    assert bool(torch.isfinite(got).all())
+    scale = want64.abs().amax(dim=(1, 2))
+    assert bool(((got - want).abs().amax(dim=(1, 2)) <= 1e-4 * scale).all())
+    err64 = (got.double() - want64).abs().amax(dim=(1, 2))
+    assert bool((err64 <= 5e-6 * scale).all()), (err64 / scale).max()
+
+
+@pytest.mark.cuda
+def test_absorption_kernel_outside_the_cutoff(device):
+    """A channel beyond the 750 GHz cutoff of some lines: every channel then
+    takes the halves apart."""
+    prof = _levels(5, 60, device)
+    args = ((22.24, 183.31, 900.0), prof["p"], prof["t"], prof["rho"],
+            prof["lwc"])
+    for model in ("R24", "R19SD"):
+        got = absorption_lb(*args, model)
+        want64 = absorption_lb_float64(*args, model)
+        scale = want64.abs().amax(dim=(1, 2))
+        err = (got.double() - want64).abs().amax(dim=(1, 2))
+        assert bool((err <= 5e-6 * scale).all()), (model, err / scale)
+
+
+def _unaligned(a):
+    """A contiguous copy of `a` that starts 4 bytes into its storage."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+WIDE, NARROW = "staged", "staged, 4-byte copies"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,alpha_is_mid,want_trans,aligned,body", [
+    ((10, 14, 64, 180), False, False, True, WIDE),     # the retrieval's
+    ((10, 14, 64, 180), True, True, True, WIDE),
+    ((3, 14, 28, 37), False, True, True, WIDE),        # a tile part empty
+    ((2, 16, 8, 6), True, False, True, WIDE),          # a block's 16
+    ((2, 18, 20, 9), False, True, True, WIDE),         # blocks of 10 and 8
+    ((1, 5, 4, 2), False, False, True, WIDE),          # one layer, odd F
+    ((10, 14, 3, 180), False, True, True, NARROW),     # B not a multiple
+    ((3, 14, 30, 37), True, False, True, NARROW),      # of 4
+    ((2, 15, 17, 11), True, True, True, NARROW),       # one profile past 16
+    ((3, 14, 28, 37), False, False, False, NARROW),    # alpha off 16 bytes
+    ((3, 14, 28, 37), True, True, False, NARROW),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_forward_bodies_match_plain(device, shape, alpha_is_mid, want_trans,
+                                    aligned, body):
+    """K2 with both sizes of its asynchronous copies, over shapes that take
+    each: tb within 5e-3 K of the plain float32 version; its chords are
+    float64, so it is held to the plain version in float64 on the same inputs
+    (tb 2e-3 K, trans_level 1e-5).  Where alpha lies changes the copies and
+    not one bit of the result."""
+    n_el, nf, batch, n_lev = shape
+    elevs = ELEVS[-n_el:]                  # the lowest ones: 4.2 degrees is in
+    prof = _levels(batch, n_lev, device)
+    freqs = tuple(torch.linspace(22.24, 58.0, nf).tolist())
+    # K6 takes any number of frequencies (K1 at most 16)
+    owned = absorption_spectral(freqs, prof["p"], prof["t"], prof["rho"],
+                                prof["lwc"], "R24")
+    if alpha_is_mid:
+        owned = (0.5 * (owned[:, :-1] + owned[:, 1:])).contiguous()
+    alpha = owned if aligned else _unaligned(owned)
+    n = geometry.refractive_index(prof["p"], prof["t"],
+                                  thermo.rho_to_e(prof["rho"], prof["t"]))
+    z, t = prof["z"], prof["t"]
+    assert forward_lb_body(alpha, n_el, alpha_is_mid) == body
+    before = forward_lb.launches
+    got = forward_lb(freqs, elevs, alpha, z, n, t, alpha_is_mid, want_trans)
+    assert forward_lb.launches == before + 1
+    want = forward_lb_reference(freqs, elevs, alpha, z, n, t, alpha_is_mid,
+                                want_trans)
+    want64 = forward_lb_reference(freqs, elevs, alpha.double(), z.double(),
+                                  n.double(), t.double(), alpha_is_mid,
+                                  want_trans)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    assert got["tb"].shape == (n_el, nf, batch)
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+    assert float((got["tb"] - want["tb"]).abs().max()) <= 5e-3
+    assert float((got["tb"].double() - want64["tb"]).abs().max()) <= 2e-3
+    torch.testing.assert_close(got["tau_total"].double(),
+                               want64["tau_total"], rtol=2e-6, atol=0)
+    if want_trans:
+        assert got["trans_level"].shape == (n_el, nf, n_lev, batch)
+        assert float((got["trans_level"].double() - want64["trans_level"])
+                     .abs().max()) <= 1e-5
+    if not aligned:
+        same = forward_lb(freqs, elevs, owned, z, n, t, alpha_is_mid,
+                          want_trans)
+        assert forward_lb_body(owned, n_el, alpha_is_mid) == (
+            WIDE if batch % 4 == 0 else NARROW)
+        assert all(torch.equal(got[k], same[k]) for k in got)
+
+
+@pytest.mark.cuda
+def test_forward_lb_refuses_more_levels_than_shared_memory_holds(device):
+    lev, batch = 2000, 4
+    z = torch.linspace(0.0, 25e3, lev, device=device)[:, None].repeat(1, batch)
+    t = torch.full_like(z, 250.0)
+    n = torch.ones_like(z)
+    alpha = torch.full((2, lev, batch), 1e-3, device=device)
+    with pytest.raises(ValueError, match="L=2000"):
+        forward_lb_body(alpha, 1)
+    before = forward_lb.launches
+    with pytest.raises(ValueError, match="L=2000"):
+        forward_lb((22.24, 31.4), (90.0,), alpha, z, n, t)
+    assert forward_lb.launches == before
+    long = forward_lb((22.24, 31.4), (90.0,), alpha[:, :1500].contiguous(),
+                      z[:1500], n[:1500], t[:1500])
+    want = forward_lb_reference((22.24, 31.4), (90.0,),
+                                alpha[:, :1500].contiguous(), z[:1500],
+                                n[:1500], t[:1500])
+    assert float((long["tb"] - want["tb"]).abs().max()) <= 5e-3
 
 
 @pytest.mark.cuda
@@ -119,7 +261,12 @@ def test_main_path_launches_both_kernels(device):
     want = lbl.forward_batch(profiles, dataclasses.replace(cfg,
                                                            use_kernels=False))
     assert float((got["tb"] - want["tb"]).abs().max()) <= 1e-2
-    assert float((got["trans_level"] - want["trans_level"])
+    # K2's chords are float64: trans_level is held to the plain path in
+    # float64 (the plain float32 path is 1.2e-5 off that at 4.2 degrees)
+    want64 = lbl.forward_batch(
+        {k: v.double() for k, v in profiles.items()},
+        dataclasses.replace(cfg, dtype="float64", use_kernels=False))
+    assert float((got["trans_level"].double() - want64["trans_level"])
                  .abs().max()) <= 1e-5
 
 
@@ -606,8 +753,19 @@ def test_fast_serving_path_launches_the_rte_kernel_once(device):
     assert set(got) == set(want)
     assert got["trans_level"].shape == (130, 10, 14, 180)
     assert float((got["tb"] - want["tb"]).abs().max()) <= 1e-2
-    assert float((got["trans_level"] - want["trans_level"]).abs().max()) \
-        <= 1e-5
+    # K2's chords are float64: trans_level is held to the plain version in
+    # float64 on the extinction and the levels the kernel was given (the
+    # plain float32 path is 1.2e-5 off that at 4.2 degrees)
+    lev = _levels(130, 180, device)
+    a_mid = fast.serving_extinction(params, lev["p"], lev["t"], lev["rho"],
+                                    lev["lwc"])
+    n = geometry.refractive_index(lev["p"], lev["t"],
+                                  thermo.rho_to_e(lev["rho"], lev["t"]))
+    want64 = forward_lb_reference(
+        cfg.freqs_ghz, cfg.elevations_deg, a_mid.double(), lev["z"].double(),
+        n.double(), lev["t"].double(), True, True)["trans_level"]
+    assert float((got["trans_level"].double() - want64.permute(3, 0, 1, 2))
+                 .abs().max()) <= 1e-5
     teacher = lbl.forward_batch(profiles, lbl.LBLConfig(outputs=("tb",)))
     assert float((got["tb"] - teacher["tb"]).pow(2).mean().sqrt()) < 0.05
     with pytest.raises(ValueError, match="float32 only"):

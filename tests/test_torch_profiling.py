@@ -168,6 +168,13 @@ KERNEL_ROOFLINES = {
     "k2": lambda b, **kw: P.k2_roofline(b, **kw),
     "k2_mid": lambda b, **kw: P.k2_roofline(b, alpha_is_mid=True, **kw),
     "k2_trans": lambda b, **kw: P.k2_roofline(b, want_trans_level=True, **kw),
+    "k2_series": lambda b, **kw: P.k2_roofline(
+        b, small_dtau_fraction=0.65, planck_series_fraction=1.0, **kw),
+    "k2_mid_series": lambda b, **kw: P.k2_roofline(
+        b, alpha_is_mid=True, planck_series_fraction=1.0, **kw),
+    "k1_sd": lambda b, **kw: P.k1_roofline(b * 180, model="R20SD", **kw),
+    "k1_r98": lambda b, **kw: P.k1_roofline(b * 180, model="R98", **kw),
+    "k1_submm": lambda b, **kw: P.k1_roofline(b * 180, (183.31, 900.0), **kw),
     "k3": lambda b, **kw: P.k2_roofline(b, 180, 8192, 1, given_paths=True,
                                         **kw),
     "k3_series": lambda b, **kw: P.k2_roofline(
@@ -238,9 +245,15 @@ def test_each_quantity_is_charged_on_the_indices_it_depends_on():
     f32 = np.linspace(22.0, 31.0, 32)
     k6 = profiling.k6_roofline(1000, f32)
     assert k6.exp_ops == profiling.k6_roofline(1000, f32[:16]).exp_ops
-    # and so does the body: its state pass runs once per call
-    assert profiling.k6_roofline(1000, f32, as_coded=True).exp_ops \
-        == k6.exp_ops
+    # and so does the body: its state pass runs once per call.  It calls
+    # powf, a logarithm and an exponential each time, 34 a point, where the
+    # function is charged one logarithm per point (K1's body does so)
+    coded = profiling.k6_roofline(1000, f32, as_coded=True)
+    assert coded.exp_ops \
+        == profiling.k6_roofline(1000, f32[:16], as_coded=True).exp_ops
+    assert coded.exp_ops - k6.exp_ops == 1000 * (35 - 1)
+    k1_body = profiling.k1_roofline(1000, f32[:16], as_coded=True)
+    assert k1_body.exp_ops == profiling.k1_roofline(1000, f32[:16]).exp_ops
 
 
 def test_float_lines_are_one_rational_and_two_o2_lines_share_a_divide():
@@ -273,6 +286,54 @@ def test_float_lines_are_one_rational_and_two_o2_lines_share_a_divide():
     assert 8 * n_o2 <= coded - needed <= 8 * 3 * n_o2
 
 
+def test_new_bodies_are_counted_as_they_are_coded():
+    """K1's body pays one reciprocal per two O2 lines and per merged H2O
+    line, where the body it replaced (K4 still has it, on dual numbers)
+    divided every half; K2's staged body forms the chord once per block of
+    up to 16 channels, takes no exponential for Planck where the series
+    serves, and pays a reciprocal per layer for computing both forms of the
+    emission factors, on any batch."""
+    n, f = 1000, np.asarray(P._HATPRO)
+    k1 = P.k1_roofline(n, as_coded=True)
+    n_o2, n_h2o = O2_MODELS["R24"].f.size, H2O_MODELS["R24"].fl.size
+    fl, cut = H2O_MODELS["R24"].fl, H2O_MODELS["R24"].cutoff_ghz
+    near = np.abs(f[:, None] - fl) < cut
+    far = np.abs(f[:, None] + fl) < cut
+    merged = (near & far).all(axis=0)
+    lines = f.size * merged.sum() + near[:, ~merged].sum() \
+        + far[:, ~merged].sum()
+    # per point: per channel 25 for the O2 pairs and 4 in the tail, and the
+    # H2O lines; 15 bases, 300 / T, / 217, k_nr and 1 / fp; the block's
+    # share of the table's reciprocals
+    per_point = f.size * (-(-n_o2 // 2) + 4) + lines + n_h2o + 4
+    assert k1.div_ops / n == pytest.approx(
+        per_point + (n_h2o + n_o2 + 2 * f.size) / 128)
+    halves = P.k4_roofline(n, as_coded=True)
+    assert halves.div_ops > 2.5 * k1.div_ops / 3    # K4: 3 floats a divide
+    B, L, F, E = 64, 180, 14, 10
+    staged = P.k2_roofline(B, L, F, E, planck_series_fraction=1.0,
+                           as_coded=True)
+    chords = 4 * E * (L - 1)            # divides and square roots a profile
+    per_thread = staged.div_ops / B - chords
+    # per (elevation, channel, profile): a reciprocal per level for Planck's
+    # series, one per layer for the quotient (whatever the opacity), two for
+    # the cosmic background, five in the tail
+    assert per_thread == pytest.approx(F * E * (L + (L - 1) + 7), rel=1e-12)
+    # any batch takes this body: the counts are proportional to it
+    odd = P.k2_roofline(B + 1, L, F, E, planck_series_fraction=1.0,
+                        as_coded=True)
+    assert odd.div_ops / (B + 1) == pytest.approx(staged.div_ops / B)
+    # K3's other body (an odd batch) takes Planck by expm1f and a divide more
+    k3 = [P.k2_roofline(b, L, F, 1, given_paths=True, as_coded=True,
+                        planck_series_fraction=1.0) for b in (B, B + 1)]
+    assert k3[1].exp_ops / (B + 1) > k3[0].exp_ops / B
+    assert staged.exp_ops == E * F * B * ((L - 1) + 3)
+    # 28 channels are two blocks of 14 (16 at the most): the chord twice
+    two = P.k2_roofline(B, L, 28, E, planck_series_fraction=1.0,
+                        as_coded=True)
+    assert two.div_ops / B - 2 * per_thread == pytest.approx(2 * chords)
+
+
 def test_planck_series_share_moves_the_rte_count():
     t = torch.tensor([[250.0], [2.7]])
     assert P.planck_series_share((22.0, 60.0), t) == 0.5
@@ -281,11 +342,17 @@ def test_planck_series_share_moves_the_rte_count():
     series = P.k2_roofline(32, 180, 8192, 1, given_paths=True,
                            planck_series_fraction=1.0)
     levels = 8192 * 180 * 32
-    # an exponential and a divide less per (channel, level, profile), more
-    # of the fp32 pipe, the same bytes
+    # an exponential and a divide less per (channel, level, profile); the
+    # series' fp32 instructions are not charged, since the closed form needs
+    # none (the function takes the lesser of both forms in each resource);
+    # the body that runs the series pays them; the same bytes
     assert closed.exp_ops - series.exp_ops == levels
     assert closed.div_ops - series.div_ops == levels
-    assert series.fma_ops > closed.fma_ops
+    assert series.fma_ops == closed.fma_ops
+    assert (P.k2_roofline(32, 180, 8192, 1, given_paths=True,
+                          planck_series_fraction=1.0, as_coded=True).fma_ops
+            > P.k2_roofline(32, 180, 8192, 1, given_paths=True,
+                            as_coded=True).fma_ops)
     assert series.hbm_bytes == closed.hbm_bytes
     half = P.k2_roofline(32, 180, 8192, 1, given_paths=True,
                          planck_series_fraction=0.5)
@@ -312,8 +379,14 @@ def test_clough_cutoff_is_counted_for_the_frequencies_given():
     low = profiling.k1_roofline(1000, (22.24,))
     high = profiling.k1_roofline(1000, (900.0,))
     assert low.fma_ops != high.fma_ops
-    assert (profiling.k1_roofline(1000, (22.24,), as_coded=True).div_ops
-            != profiling.k1_roofline(1000, (900.0,), as_coded=True).div_ops)
+    # K1's body merges a line's two halves where both lie inside (one divide
+    # where the halves apart took two), so at these two frequencies its
+    # divides happen to agree and its fp32 instructions show the branches;
+    # K4's body divides every half
+    assert (profiling.k1_roofline(1000, (22.24,), as_coded=True).fma_ops
+            != profiling.k1_roofline(1000, (900.0,), as_coded=True).fma_ops)
+    assert (profiling.k4_roofline(1000, (22.24,), as_coded=True).div_ops
+            != profiling.k4_roofline(1000, (900.0,), as_coded=True).div_ops)
     # the qSD releases evaluate 16 quadrature nodes per near half
     assert (profiling.k1_roofline(1000, model="R20SD").div_ops
             > profiling.k1_roofline(1000, model="R20").div_ops)
@@ -350,3 +423,13 @@ def test_path_rooflines_are_the_sums_of_their_kernels():
             < lbl_sum.div_ops)
     assert (profiling.spectral_roofline(5760, 8192, f_range=(20.0, 400.0))
             != spec_sum)
+
+
+def test_path_times_needs_a_card(monkeypatch, capsys):
+    """The host-against-device timer of one entry point exits with 1 on a
+    machine without a card, having measured nothing."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
+        path_times)
+    monkeypatch.setattr("sys.argv", ["path_times.py", "--path", "forward"])
+    assert path_times.main() == 1
+    assert "CUDA" in capsys.readouterr().out

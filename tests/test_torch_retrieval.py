@@ -237,3 +237,44 @@ def test_retrieval_without_liquid_takes_zero_liquid(setup):
                            torch.zeros_like(z))
     torch.testing.assert_close(a["t"], b["t"], rtol=0, atol=0)
     assert float((a["tb_fit"] - tb_obs).abs().mean()) < 0.5
+
+
+@pytest.mark.parametrize("entry", ["retrieve_batch", "retrieve"])
+def test_numpy_inputs_ask_for_the_card(setup, entry):
+    """numpy inputs are not a request for the CPU: without a card the
+    retrieval raises and names `device="cpu"`, as every other entry point
+    does, where it used to run on the CPU unasked."""
+    profiles, params, cfg, ocfg = setup
+    assert not torch.cuda.is_available()
+    if entry == "retrieve":
+        arrays = [a.numpy() for a in _one(profiles, 0)]
+        tb_obs = np.zeros((len(ELEVS), 14), np.float32)
+    else:
+        arrays = [profiles[k].numpy() for k in ("z", "p", "t", "rho", "lwc")]
+        tb_obs = np.zeros((16, len(ELEVS), 14), np.float32)
+    z, p, t, rho, lwc = arrays
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(retrieval, entry)(params, tb_obs, z, p, t, rho, ocfg, lwc)
+
+
+def test_cpu_tensors_keep_the_retrieval_on_the_cpu(setup):
+    """The grid `z_m` names the device: with it a CPU tensor, numpy arrays
+    and lists beside it join it there, and the result is that of tensors
+    throughout."""
+    profiles, params, cfg, ocfg = setup
+    z, p, t_true, rho_true, lwc = _one(profiles, 4)
+    tb_obs = fast.fast_forward_batch(
+        params, {k: v[4:5] for k, v in profiles.items()}, cfg)["tb"][0]
+    t_prior, rho_prior = t_true + 1.0, rho_true * 0.9
+    want = retrieval.retrieve(params, tb_obs, z, p, t_prior, rho_prior, ocfg,
+                              lwc)
+    got = retrieval.retrieve(params, tb_obs.numpy(), z, p.numpy(),
+                             t_prior.tolist(), rho_prior.numpy(), ocfg,
+                             lwc.numpy())
+    for k, v in want.items():
+        assert got[k].device.type == "cpu" and got[k].dtype == torch.float32
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0)
+    batch = retrieval.retrieve_batch(
+        params, tb_obs[None].numpy(), z[None], p[None].numpy(),
+        t_prior[None].numpy(), rho_prior[None].numpy(), ocfg)
+    assert batch["t"].device.type == "cpu" and batch["t"].shape == (1, N_LEVELS)

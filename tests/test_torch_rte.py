@@ -13,6 +13,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import physics
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (geometry,
                                                                rte, thermo)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+    _mirrors as mirrors)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import rte as k2
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
     absorption_lb_reference)
@@ -352,3 +354,93 @@ def test_downwelling_lb_reference_is_forward_lb_on_its_chords(levels):
                                       alpha, ds, t, want_trans_level=True)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-14, atol=1e-12)
+
+
+# ---- K2's staged body: the block-level chord and Planck's series ----------
+
+@pytest.fixture(scope="module")
+def levels96():
+    """(L, B) float32 levels of the 96-level demo_batch(4), their refractive
+    index and R24 absorption."""
+    prof = {k: v.T.contiguous()
+            for k, v in lbl.demo_batch(4, 96, device="cpu").items()}
+    prof["n"] = geometry.refractive_index(
+        prof["p"], prof["t"], thermo.rho_to_e(prof["rho"], prof["t"]))
+    prof["alpha"] = absorption_lb_reference(FREQS, prof["p"], prof["t"],
+                                            prof["rho"], prof["lwc"], "R24")
+    return prof
+
+
+def _chords64(elevs, z, n):
+    """`geometry.chord_lengths` in float64 on the float32 z and n."""
+    cos_el = torch.cos(torch.deg2rad(torch.tensor(elevs,
+                                                  dtype=torch.float64)))
+    return torch.stack([geometry.chord_lengths(z.double(), n.double(), c)
+                        for c in cos_el])
+
+
+@pytest.mark.parametrize("float64,elev,rtol", [
+    (True, 90.0, 1.2e-7), (True, 4.2, 1.2e-7),
+    (False, 90.0, 1.2e-7), (False, 4.2, 2e-4)],
+    ids=["f64-zenith", "f64-4.2", "f32-zenith", "f32-4.2"])
+def test_staged_chords_against_float64(levels96, float64, elev, rtol):
+    """The chord as K2 forms it against float64: in float64
+    arithmetic it is float64 rounded once (6e-8); in float32 it is exact at
+    zenith (dz comes from z), and at 4.2 degrees r = R_E + z rounds to half
+    a metre of the 17 km that r - r_k comes to, which the square root
+    halves: some 2e-5 of a chord, 2e-4 allowed."""
+    z, n = levels96["z"], levels96["n"]
+    got = mirrors.staged_chords((elev,), z, n, float64=float64)
+    want = _chords64((elev,), z, n)
+    assert got.dtype == torch.float32 and got.shape == (1, 95, 4)
+    rel = float(((got.double() - want).abs() / want).max())
+    assert rel <= rtol, rel
+    if elev == 4.2 and not float64:
+        assert rel > 1.2e-7         # the loss the float64 chord removes
+    if float64 is True:
+        assert torch.equal(got, mirrors.staged_chords((elev,), z, n))   # default
+
+
+@pytest.mark.parametrize("elev", [90.0, 4.2])
+def test_float64_chords_bring_tb_closer_to_float64(levels96, elev):
+    """The float32 RTE on float64 chords against on float32 chords, both
+    held to the plain version in float64 on the same float32 inputs: at 4.2
+    degrees the float64 chords are the closer, and within 1e-3 K; at zenith
+    the two agree."""
+    alpha, z, n, t = (levels96[k] for k in ("alpha", "z", "n", "t"))
+    want = k2.forward_lb_reference(FREQS, (elev,), alpha.double(), z.double(),
+                                   n.double(), t.double())["tb"]
+    err = {}
+    for float64 in (False, True):
+        ds = mirrors.staged_chords((elev,), z, n, float64=float64)
+        got = k2.downwelling_lb_reference(FREQS, alpha, ds, t)["tb"]
+        err[float64] = float((got.double() - want).abs().max())
+    assert err[True] <= 1e-3
+    if elev == 4.2:
+        assert err[True] < err[False] <= 5e-3, err
+    else:
+        assert err[False] <= 1e-3
+
+
+@pytest.mark.parametrize("t_low", [180.0, 60.0])
+def test_planck_series_against_expm1(t_low):
+    """Planck's series t (1 - u / 2 + u^2 / 12 - u^4 / 720) in float32
+    against x / expm1(x / t) in float64, for the 14 channels and up to
+    300 GHz, wherever u = x / t < 0.25: 1 ulp of t and the u^6 / 30240 term
+    (under 1e-8 t) apart, 1e-4 K allowed."""
+    f = torch.tensor(FREQS + (150.0, 300.0))[:, None]
+    t = torch.linspace(t_low, 320.0, 200)[None, :]
+    x = physics.HK_GHZ * f
+    ok = x / t < 0.25
+    assert bool(ok[:14].all()) and bool(ok.any(dim=1).all())
+    got = mirrors.planck_series(x, t)
+    want = rte.planck_tb(t.double(), f.double())
+    assert got.dtype == torch.float32
+    assert float((got.double() - want).abs()[ok].max()) <= 1e-4
+    # past u = 0.25 the staged body takes expm1f: the series drifts
+    far = mirrors.planck_series(torch.tensor(48.0), torch.tensor(30.0))
+    assert abs(float(far) - 48.0 / np.expm1(1.6)) > 1e-2
+
+
+def test_forward_lb_body_names_the_plain_version_on_cpu(levels96):
+    assert k2.forward_lb_body(levels96["alpha"], 10) == "plain"

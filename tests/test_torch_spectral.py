@@ -25,6 +25,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
     ZENITH_SWEEP_MODELS)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl, spectral
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+    _mirrors as mirrors)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     spectral as k6)
 
 torch.set_num_threads(1)
@@ -323,10 +325,10 @@ def test_merged_arithmetic_against_float64(model):
     plain = _share_of_max(
         k6.absorption_spectral_reference(f, *args, model), ref)
     merged = _share_of_max(
-        k6.absorption_spectral_merged(f, *args, model), ref)
+        mirrors.absorption_spectral_merged(f, *args, model), ref)
     assert merged <= 2.0 * plain and merged < 3e-6, (merged, plain)
     # in float64 the merged form is the function itself
-    merged64 = k6.absorption_spectral_merged(
+    merged64 = mirrors.absorption_spectral_merged(
         f.double(), *(a.double() for a in args), model)
     exact = k6.absorption_spectral_reference(
         f.double(), *(a.double() for a in args), model)
@@ -360,7 +362,7 @@ def test_expanded_pair_cancels_at_the_line_centres(model):
     2.4e-4, and q falls to 1e-3 at the line centres at 25 hPa."""
     f, args = _line_centre_case()
     ref = k6.absorption_spectral_float64(f, *args, model)
-    alpha = k6.absorption_spectral_merged(f, *args, model)
+    alpha = mirrors.absorption_spectral_merged(f, *args, model)
     merged = _share_of_max(alpha, ref)
     from_d1, scale = _o2_line_sum(f, args, model, expanded=False)
     in_f, _ = _o2_line_sum(f, args, model, expanded=True)
