@@ -9,9 +9,9 @@ toolkit.  It builds the port's kernels from `csrc/` and goes through
 twenty phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions, the
-     kernel build time, each kernel instantiation's registers and spills,
-     and the warps of K1, K2's staged body, K6 and K3's staged body resident
-     per SM;
+     kernel build time, each kernel instantiation's registers and spills
+     (K5's without spills), and the warps of K1, K2's staged body, K5, K6
+     and K3's staged body resident per SM;
   1. the absorption kernel (K1) against its plain torch version on the card
      and against the function in float64 on the kernel's float32 tables;
   2. the RTE kernel (K2) against its plain torch version on the card and
@@ -40,7 +40,8 @@ twenty phases, each printing its own lines:
      physical signs;
   9. CUDA-event times of K4, K5 and the K-matrix against the plain versions,
      of `forward_batch` at the same batch, of the output permute alone, and
-     peak device memory;
+     peak device memory; K5 t on 32 profiles in a graph, one block per
+     (elevation, channel);
  10. the spectral absorption kernel (K6): its state pass against the plain
      `line_state` in float64; the kernel against its plain version and
      against the function in float64 on the kernel's float32 tables (with
@@ -243,6 +244,8 @@ def main() -> int:
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (  # noqa: E501
         absorption_lb, absorption_lb_float64, absorption_lb_reference,
         absorption_tangents_lb, absorption_tangents_lb_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+        adjoint as k5_mod)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (  # noqa: E501
         kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
         kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
@@ -280,6 +283,9 @@ def main() -> int:
     for src, name, report in ptxas_report(
             lib_path.with_suffix(".log").read_text()):
         print(f"phase 0: ptxas: {src} {name}: {report}")
+        if src == "adjoint.cu":
+            check(not re.search(r"[1-9]\d* bytes spill", report),
+                  f"K5 {name} spills: {report}")
     for what, warps, least in (
             (f"K1, F={len(freqs)}, R24",
              k1_mod.resident_warps(len(freqs), "R24"), 24),
@@ -296,7 +302,9 @@ def main() -> int:
              42),
             ("K6 main pass, R24", k6.resident_warps("R24"), 32),
             ("K6 main pass, R20SD", k6.resident_warps("R20SD"), 32),
-            (f"K3 staged body, L={L}", staged_resident_warps(L), 32)):
+            (f"K3 staged body, L={L}", staged_resident_warps(L), 32),
+            *((f"K5 {which}, L={L}", k5_mod.resident_warps(which, L), 32)
+              for which in ("t", "rho", "lwc", "rho_lwc"))):
         print(f"phase 0: {what}: {warps} warps resident per SM (of 64)")
         check(warps >= least, f"{what}: {warps} warps per SM")
 
@@ -676,6 +684,20 @@ def main() -> int:
               f"L={L}: kernel {k_ms:.4f} ms "
               f"({graph_times[k5_calls[which][0].__name__]:.4f} ms in a "
               f"graph), plain {p_ms:.4f} ms")
+    # the lone block: one block per (elevation, channel) at B=32, and no
+    # more blocks than SMs, shows a column's walk with nothing beside it
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_lone = min(len(elevs), max(1, sms // len(freqs)))
+    lone_args = list(k5_calls["t"][2])
+    for i in (4, 6, 7, 9):           # ds, dds_dnl, dds_dk, r0cos: (E, ...)
+        lone_args[i] = lone_args[i][:n_lone]
+    lone_args = [a[..., :32].contiguous() if torch.is_tensor(a) else a
+                 for a in lone_args]
+    lone_ms = graph_ms(lambda: kmatrix_assembled_lb(*lone_args))
+    print(f"phase 9: K5 t B=32 E={n_lone} F={len(freqs)} L={L} "
+          f"({n_lone * len(freqs)} blocks on {sms} SMs, one an SM): "
+          f"{lone_ms:.4f} ms in a graph")
+    check(n_lone * len(freqs) <= sms, "K5 lone blocks outnumber the SMs")
     line = []
     for use_kernels in (True, False):
         run_cfg = dataclasses.replace(cfg_k, use_kernels=use_kernels)

@@ -54,6 +54,8 @@ SIGNATURES = {
     # mode, freqs, alpha, da, da2, ds, t, dnl, dk, dn, r0cos, E, F, L, B,
     # hk_ghz, t_cosmic, out, out2, stream
     "mwr_kmatrix_lb": [_I] + [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P] * 3,
+    # mode, L
+    "mwr_kmatrix_resident_warps": [_I] * 2,
     # op, k, x, out, n, threads, stream
     "mwr_chain": [_I, _I, _P, _P, _I, _I, _P],
 }

@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from ...constants import H2O_MODELS
-from .. import geometry
+from ...constants import physics as phys
+from .. import geometry, rte
 from ..absorption.h2o import _GL_W, _GL_X
 from .absorption import HEADER_FIELDS, pack_tables, table_layout
 from .spectral import _check_model, line_state
@@ -166,3 +167,194 @@ def planck_series(x, t):
     u = x / t
     u2 = u * u
     return t * ((1.0 - 0.5 * u) + u2 * (1.0 / 12.0 - u2 * (1.0 / 720.0)))
+
+
+# Horner coefficients of g_top / d and of dg_top / dd in K5's emission
+# series (`csrc/adjoint.cu::emission`), lowest order first, signs alternating.
+_G_TOP_OVER_D = (1 / 2, 1 / 3, 1 / 8, 1 / 30, 1 / 144, 1 / 840, 1 / 5760,
+                 1 / 45360, 1 / 403200, 1 / 3991680)
+_DG_TOP = (1 / 2, 2 / 3, 3 / 8, 2 / 15, 5 / 144, 1 / 140, 7 / 5760,
+           1 / 5670, 1 / 44800, 1 / 399168)
+
+
+def _alternating_horner(coefs, d):
+    acc = torch.full_like(d, coefs[-1])
+    for c in coefs[-2::-1]:
+        acc = c - d * acc
+    return acc
+
+
+def k5_emission(d):
+    """(g_bot, g_top, dg_bot, dg_top) of layers of opacity d.  In float32
+    as K5 forms them: the 10-term series below d = 0.5, the closed form
+    above.  In float64 those of the plain version
+    (`rte._emission_factors`, `_emission_factor_derivs`), whose float64
+    series ends at 2e-4: the kernel's truncation (up to 5e-11 near d = 0.5)
+    would hide the order of the sums that a float64 run compares."""
+    if d.dtype == torch.float64:
+        return (*rte._emission_factors(d), *rte._emission_factor_derivs(d))
+    small = d < 0.5
+    closed = torch.where(small, 1.0, d)
+    em = torch.exp(-closed)
+    g_top_over_d = torch.where(small, _alternating_horner(_G_TOP_OVER_D, d),
+                               (1.0 - (1.0 + closed) * em) / (closed * closed))
+    g_top = d * g_top_over_d
+    dg_top = torch.where(small, _alternating_horner(_DG_TOP, d),
+                         em - g_top_over_d)
+    return -torch.expm1(-d) - g_top, g_top, g_top_over_d, dg_top
+
+
+def kmatrix_chunked(freqs, mode: str, alpha, da, ds, t_k, dds_dnl=None,
+                    dds_dk=None, dn=None, r0cos=None, da2=None,
+                    chunks: int = 8):
+    """K5's chunked walk (`csrc/adjoint.cu`) in plain torch, for every
+    (elevation, channel, profile) column at once: the L-1 layers split into
+    min(chunks, L-1) contiguous chunks, as the kernel splits them over the
+    warps of a block, and three walks with a combine after each.
+
+    1. Up, the opacity of each chunk alone.  Combined: the opacity below
+       each chunk and the column's.
+    2. Up from that opacity: the transmittance T_k below each layer, and the
+       chunk's share of the radiance.  Combined: the radiance, dtb/dR, and
+       for each chunk the suffix S that enters it from above, the sum of
+       the shares above it taken from the top down.
+    3. Down from that suffix: every level strictly inside the chunk.  The
+       chunk's top level keeps its own share for later (the kernel's row of
+       that level still holds the T of the chunk above), and the chunk
+       leaves its bottom carries and its part of the Snell sum.  Combined:
+       each top level from its share and the carries of the chunk above,
+       level 0 from chunk 0's carries and the whole Snell sum.
+
+    mode, shapes and outputs as `adjoint._launch`: [K] or, for "rho_lwc",
+    [k_rho, k_lwc] (E, F, L, B), with k_lwc from da2.  Only the order of
+    the sums differs from the sequential walk; the emission factors are
+    `k5_emission`'s.
+    """
+    planck_on, geo, two = {"lwc": (False, False, False),
+                           "rho": (False, True, False),
+                           "t": (True, True, False),
+                           "rho_lwc": (False, True, True)}[mode]
+    n_lay = ds.shape[1]
+    n_chunks = min(chunks, n_lay)
+    edges = [c * n_lay // n_chunks for c in range(n_chunks + 1)]
+    x = phys.HK_GHZ * torch.as_tensor(freqs, dtype=alpha.dtype,
+                                      device=alpha.device)[None, :, None]
+    a = alpha[None]                                   # (1, F, L, B)
+    dsr = ds[:, None]                                 # (E, 1, L-1, B)
+    tl = t_k[None, None]                              # (1, 1, L, B)
+
+    def planck(t):
+        return x / torch.expm1(x / t)
+
+    def planck_dt(t):
+        u = x / t
+        em = torch.expm1(u)
+        return u * u * (em + 1.0) / (em * em)
+
+    def d_of(k):
+        return 0.5 * (a[:, :, k] + a[:, :, k + 1]) * dsr[:, :, k]
+
+    zero = torch.zeros_like(d_of(0))                  # (E, F, B)
+    # walk 1 and its combine
+    opacity = []
+    for k0, k1 in zip(edges[:-1], edges[1:]):
+        acc = zero
+        for k in range(k0, k1):
+            acc = acc + d_of(k)
+        opacity.append(acc)
+    below, total = [], zero
+    for acc in opacity:
+        below.append(total)
+        total = total + acc
+
+    # walk 2 and its combine
+    trans, radiance = {}, []
+    for c, (k0, k1) in enumerate(zip(edges[:-1], edges[1:])):
+        ctau, acc = below[c], zero
+        b_bot = planck(tl[:, :, k0])
+        for k in range(k0, k1):
+            d = d_of(k)
+            trans[k] = torch.exp(-ctau)
+            ctau = ctau + d
+            b_top = planck(tl[:, :, k + 1])
+            g_bot, g_top, _, _ = k5_emission(d)
+            acc = acc + (g_bot * b_bot + g_top * b_top) * trans[k]
+            b_bot = b_top
+        radiance.append(acc)
+    atm = zero
+    for acc in radiance:
+        atm = atm + acc
+    entering = []
+    for c in range(n_chunks):
+        acc = zero
+        for j in range(n_chunks - 1, c, -1):
+            acc = acc + radiance[j]
+        entering.append(acc)
+    ctt = planck(torch.as_tensor(phys.T_COSMIC, dtype=alpha.dtype)) * \
+        torch.exp(-total)
+    b = atm + ctt
+    lg = torch.log1p(x / b)
+    dtb_dr = x * x / (b * (b + x) * lg * lg)
+
+    levels = [[None] * (n_lay + 1) for _ in range(1 + two)]
+
+    def store(lev, lev_alpha, lev_planck, lev_geo):
+        k = lev_alpha * da[None, :, lev]
+        if planck_on:
+            k = k + lev_planck
+        if geo:
+            k = k + lev_geo * dn[None, None, lev]
+        levels[0][lev] = k
+        if two:
+            levels[1][lev] = lev_alpha * da2[None, :, lev]
+
+    # walk 3: per chunk the shares of its top level, its carries at the
+    # bottom and its part of the Snell sum
+    top, carries, snell = [], [], []
+    for c, (k0, k1) in enumerate(zip(edges[:-1], edges[1:])):
+        suffix = entering[c]
+        carry_alpha = carry_planck = carry_geo = s_k = zero
+        b_top = planck(tl[:, :, k1])
+        bp_top = planck_dt(tl[:, :, k1]) if planck_on else None
+        for k in range(k1 - 1, k0 - 1, -1):
+            amid = 0.5 * (a[:, :, k] + a[:, :, k + 1])
+            dsk = dsr[:, :, k]
+            d = amid * dsk
+            t_below = trans[k]
+            b_bot = planck(tl[:, :, k])
+            g_bot, g_top, dg_bot, dg_top = k5_emission(d)
+            w = (dg_bot * b_bot + dg_top * b_top) * t_below - suffix - ctt
+            suffix = suffix + (g_bot * b_bot + g_top * b_top) * t_below
+            half = 0.5 * dtb_dr * w * dsk
+            lev_alpha, carry_alpha = carry_alpha + half, half
+            lev_planck = lev_geo = zero
+            if planck_on:
+                bp_bot = planck_dt(tl[:, :, k])
+                lev_planck = carry_planck + dtb_dr * g_top * t_below * bp_top
+                carry_planck = dtb_dr * g_bot * t_below * bp_bot
+                bp_top = bp_bot
+            if geo:
+                g_ds = dtb_dr * w * amid
+                half_geo = 0.5 * g_ds * dds_dnl[:, None, k]
+                lev_geo, carry_geo = carry_geo + half_geo, half_geo
+                s_k = s_k + g_ds * dds_dk[:, None, k]
+            if k + 1 < k1:
+                store(k + 1, lev_alpha, lev_planck, lev_geo)
+            else:
+                top.append((lev_alpha, lev_planck, lev_geo))
+            b_top = b_bot
+        carries.append((carry_alpha, carry_planck, carry_geo))
+        snell.append(s_k)
+
+    # the combine: each chunk's top level, then level 0
+    for c, k1 in enumerate(edges[1:]):
+        above = carries[c + 1] if c + 1 < n_chunks else (zero,) * 3
+        store(k1, *(ca + own for ca, own in zip(above, top[c])))
+    s_k = zero
+    for part in snell:
+        s_k = s_k + part
+    carry_alpha, carry_planck, carry_geo = carries[0]
+    if geo:
+        carry_geo = carry_geo + s_k * r0cos[:, None]
+    store(0, carry_alpha, carry_planck, carry_geo)
+    return [torch.stack(lev, dim=2) for lev in levels]

@@ -17,6 +17,9 @@ from . import _build
 
 # the kernel's `mode` argument (csrc/adjoint.cu::mwr_kmatrix_lb)
 _MODES = {"lwc": 0, "rho": 1, "t": 2, "rho_lwc": 3}
+# warps of a block, each walking one chunk of the layers
+# (csrc/adjoint.cu::kChunkWarps); a launch takes min(CHUNK_WARPS, L - 1)
+CHUNK_WARPS = 8
 
 
 def kmatrix_assembled_reference(freqs, alpha, da: dict, ds, t_k,
@@ -185,3 +188,13 @@ def kmatrix_assembled_rho_lwc_lb(freqs, alpha, da_rho, da_lwc, ds, t_k,
 
 
 kmatrix_assembled_rho_lwc_lb.launches = 0
+
+
+def resident_warps(which: str = "t", n_levels: int = 180) -> int:
+    """Warps of K5 that the current CUDA device keeps resident per SM for
+    `which` ("t", "rho", "lwc" or "rho_lwc") at n_levels levels."""
+    warps = _build.library().mwr_kmatrix_resident_warps(_MODES[which],
+                                                        n_levels)
+    if warps < 0:
+        raise RuntimeError(f"K5 occupancy query failed: CUDA error {-warps}")
+    return warps

@@ -88,6 +88,7 @@ import numpy as np
 import torch
 
 from ..constants import HK_GHZ, H2O_MODELS, O2_MODELS, hatpro, o3_lines
+from ..ops.cuda import adjoint as adjoint_mod
 from ..ops.cuda import chain as chain_mod
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet), per second.
@@ -917,25 +918,39 @@ def planck_series_share(freqs_ghz, t) -> float:
 _SERIES = "fmul*9 fadd*9"                # one 10-term Horner series
 _PLANCK_DT = "fdiv fexp fmul fadd fmul fmul fdiv"
 _GEO = "fmul*2 fmul*2 fadd fmul fadd fmul fadd"
-# What the body executes: one thread per (elevation, channel, profile) walks
-# the layers up, then down.
+# What the body executes: a block per (elevation, channel, 32 profiles); each
+# of its C warps walks one chunk of the layers up twice, then down, and the
+# warps combine their sums in shared memory after each walk.
 _ADJOINT_CODED = {
-    # per thread: x; planck of level 0; ctt; dtb_dr; planck of the top
-    # level; level 0 of K
-    "thread": f"fmul {_PLANCK} {_PLANCK} fexp fmul "
-              f"fadd fdiv fexp fmul fadd fmul*3 fdiv {_PLANCK} fmul",
-    "thread_planck": f"{_PLANCK_DT} fadd",
+    # per (chunk, column): x; planck of the chunk's bottom level; ctt;
+    # dtb_dr; planck of its top level; that level's absorption share plus
+    # the carry of the chunk above
+    "chunk": f"fmul {_PLANCK} {_PLANCK} fexp fmul "
+             f"fadd fdiv fexp fmul fadd fmul*3 fdiv {_PLANCK} fadd",
+    "chunk_planck": f"{_PLANCK_DT} fadd",
+    "chunk_geo": "fadd",
+    # per (chunk, column, chunk read back): the column's opacity and radiance
+    "combine": "fadd*2",
+    # per (column, pair of chunks j above c): the suffix entering chunk c
+    "combine_suffix": "fadd",
+    # per (column, chunk): warp 0's Snell sum
+    "combine_geo": "fadd",
+    # per column: level 0
+    "thread": "fmul",
+    "thread_planck": "fadd",
     "thread_geo": "fmul fadd fmul fadd",
     "thread_two": "fmul",
-    # forward walk, per layer: d, t_below, ctau, planck, the series test,
-    # g_top, g_bot (an expm1f), the emission sum
+    # walk 1, per layer: d and the chunk's opacity
+    "opacity": "fadd fmul*2 fadd",
+    # walk 2, per layer: d, t_below, ctau, planck, the series test, g_top,
+    # g_bot (an expm1f), the emission sum
     "forward": f"fadd fmul*2 fexp fadd {_PLANCK} cmp fmul fexp fadd "
                "fmul*3 fadd*2",
     "forward_series": _SERIES,
     "forward_closed": "fexp fadd fmul fadd fmul fdiv",
-    # backward walk, per layer: amid, d, planck, the two tests, g_top,
-    # g_bot, w, the suffix sum, half, the level's share and its product
-    # with the tangent
+    # walk 3, per layer: amid, d, planck, the two tests, g_top, g_bot, w,
+    # the suffix sum, half, the level's share and its product with the
+    # tangent
     "backward": f"fadd fmul fmul {_PLANCK} cmp*2 fmul fexp fadd "
                 "fmul*3 fadd*3 fmul*3 fadd*2 fmul*3 fadd fmul",
     "backward_series": f"{_SERIES} {_SERIES}",
@@ -985,7 +1000,8 @@ def k5_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
     variable.  `series_fraction` is the share of layer opacities under 0.5,
     which take the emission-factor series (`small_dtau_share(dtau, 0.5)`).
     The kernel's re-read of the transmittances it parks in its own output
-    is not in the bytes."""
+    is not in the bytes.  With `as_coded` the walk is split into
+    min(`adjoint.CHUNK_WARPS`, L - 1) chunks, as the kernel splits it."""
     planck, geo, two = _K5_MODES[which]
     threads = float(batch) * n_channels * n_elevations
     layers = threads * (n_levels - 1)
@@ -993,6 +1009,12 @@ def k5_roofline(batch: int, n_levels: int = 180, n_channels: int = 14,
              "thread_geo": threads * geo, "thread_two": threads * two}
     if as_coded:
         body = _ADJOINT_CODED
+        n_chunks = min(adjoint_mod.CHUNK_WARPS, n_levels - 1)
+        chunks = threads * n_chunks
+        times.update(chunk=chunks, chunk_planck=chunks * planck,
+                     chunk_geo=chunks * geo, combine=chunks * n_chunks,
+                     combine_suffix=threads * n_chunks * (n_chunks - 1) / 2,
+                     combine_geo=chunks * geo, opacity=layers)
         for walk in ("forward", "backward"):
             times.update({walk: layers,
                           f"{walk}_series": layers * series_fraction,

@@ -3,6 +3,8 @@ module of kernel K5 (`ops/cuda/adjoint.py`), held against the JAX package's
 XLA functions, reverse-mode AD through the port's own forward, and the JAX
 Pallas adjoint kernel (interpret mode, at its smallest shape)."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (geometry, rte,
                                                                thermo)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
-    adjoint as k5)
+    _build, _mirrors, adjoint as k5)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
     absorption_tangents_lb_reference)
 
@@ -278,3 +280,70 @@ def test_assembled_reference_matches_the_jax_kernel(which):
         assert k.shape == w.shape == (1, 1, 16, 128)
         scale = np.maximum(np.abs(w), 1e-3 * np.abs(w).max())
         assert np.max(np.abs(k.numpy() - w) / scale) < 5e-3
+
+
+def test_chunk_warps_are_the_kernels():
+    """The as-coded count (`profiling.k5_roofline`) splits the walk as the
+    kernel does: `adjoint.CHUNK_WARPS` is csrc/adjoint.cu's `kChunkWarps`."""
+    src = (_build.CSRC / "adjoint.cu").read_text()
+    assert f"constexpr int kChunkWarps = {k5.CHUNK_WARPS};\n" in src
+
+
+@functools.cache
+def _chunk_inputs(n_levels):
+    """float64 inputs of K5 at 4 channels x 2 elevations x 3 profiles."""
+    prof = lbl.level_major_profiles(
+        lbl.demo_batch(3, n_levels, device="cpu"),
+        lbl.LBLConfig(dtype="float64"))
+    return _k5_inputs(prof, F4, (90.0, 4.2))
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+@pytest.mark.parametrize("n_levels", [2, 3, 24, 96])
+@pytest.mark.parametrize("chunks", [1, 2, 7, "per_layer"])
+@pytest.mark.parametrize("mode", ["t", "rho", "lwc", "rho_lwc"])
+def test_chunked_walk_matches_the_closed_form(mode, chunks, n_levels,
+                                               dtype_name):
+    """K5's walk split into chunks of layers (`_mirrors.kmatrix_chunked`,
+    the kernel's algebra in plain torch) against the plain closed form in
+    float64: one chunk, chunks of one layer, an uneven last chunk, and more
+    chunks asked for than there are layers.  In float64 to 1e-12 of the
+    largest entry: the order of the sums is all that differs, and an
+    entrywise relative bound would gauge the plain version's own
+    S = atm - cumsum, which cancels near the column top.  In float32 to the
+    K-matrix's bound, 1e-3 relative floored at 1e-3 of the largest entry."""
+    _check_chunked(mode, n_levels - 1 if chunks == "per_layer" else chunks,
+                   n_levels, dtype_name)
+
+
+@pytest.mark.parametrize("mode", ["t", "rho_lwc"])
+def test_chunked_walk_at_the_kernels_split(mode):
+    """The split the kernel makes at the K-matrix's depth: 180 levels in
+    `adjoint.CHUNK_WARPS` chunks of 22 and 23 layers, in float32."""
+    _check_chunked(mode, k5.CHUNK_WARPS, 180, "float32")
+
+
+def _check_chunked(mode, chunks, n_levels, dtype_name):
+    alpha, da, g, t = _chunk_inputs(n_levels)
+    names = ("rho", "lwc") if mode == "rho_lwc" else (mode,)
+    geo = [n for n in names if n != "lwc"]
+    want = k5.kmatrix_assembled_reference(
+        F4, alpha, {n: da[n] for n in names}, g["ds"], t, g["dds_dnl"],
+        g["dds_dk"], {n: g["dn"][n] for n in geo} or None, g["r0cos"])
+    tdt = DTYPES[dtype_name][0]
+    geo_args = {} if not geo else dict(
+        dds_dnl=g["dds_dnl"].to(tdt), dds_dk=g["dds_dk"].to(tdt),
+        dn=g["dn"][geo[0]].to(tdt), r0cos=g["r0cos"].to(tdt))
+    got = _mirrors.kmatrix_chunked(
+        F4, mode, alpha.to(tdt), da[names[0]].to(tdt), g["ds"].to(tdt),
+        t.to(tdt), da2=da["lwc"].to(tdt) if mode == "rho_lwc" else None,
+        chunks=chunks, **geo_args)
+    assert len(got) == len(names)
+    for k, name in zip(got, names):
+        w = want[name]
+        assert k.dtype == tdt and k.shape == w.shape == (2, 4, n_levels, 3)
+        if tdt == torch.float64:
+            assert float((k - w).abs().max()) <= 1e-12 * float(w.abs().max())
+        else:
+            scale = torch.clamp_min(w.abs(), 1e-3 * w.abs().max())
+            assert float(((k.double() - w).abs() / scale).max()) <= 1e-3

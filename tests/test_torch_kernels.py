@@ -317,8 +317,8 @@ def test_tangent_kernel_matches_plain(device, model):
         assert bool((err <= bound * scale).all()), (err / scale).max()
 
 
-def _k5_inputs(batch, device):
-    prof = _levels(batch, 180, device)
+def _k5_inputs(batch, device, n_levels=180):
+    prof = _levels(batch, n_levels, device)
     cfg = lbl.LBLConfig()
     alpha, da_t, da_rho = absorption_tangents_lb(
         FREQS, prof["p"], prof["t"], prof["rho"], prof["lwc"], "R24")
@@ -330,12 +330,15 @@ def _k5_inputs(batch, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["t", "rho", "lwc", "rho_lwc"])
-@pytest.mark.parametrize("batch", [3, 200])
-def test_kmatrix_kernel_matches_plain(device, batch, which):
+@pytest.mark.parametrize("batch,n_levels", [(3, 180), (200, 180), (33, 180),
+                                            (33, 2), (33, 20)])
+def test_kmatrix_kernel_matches_plain(device, batch, n_levels, which):
     """K5 against its plain version run in float64 on the same float32
     inputs (in float32 the plain S_k = atm - cumsum cancels near the column
-    top): 1e-3 relative, floored at 1e-3 of the largest entry."""
-    alpha, da, g, t = _k5_inputs(batch, device)
+    top): 1e-3 relative, floored at 1e-3 of the largest entry.  B=33 leaves
+    one lane of the last group of 32 profiles; L=2 is one layer, one warp a
+    block; L=20 splits 19 layers into chunks of two and three."""
+    alpha, da, g, t = _k5_inputs(batch, device, n_levels)
     geo = [g["dds_dnl"], g["dds_dk"], g["dn"]["t" if which == "t" else "rho"],
            g["r0cos"]]
     if which == "rho_lwc":
@@ -355,7 +358,7 @@ def test_kmatrix_kernel_matches_plain(device, batch, which):
             FREQS, which, *(a.double() for a in args))]
     torch.cuda.synchronize()
     for k, w in zip(got, want):
-        assert k.shape == (len(ELEVS), len(FREQS), 180, batch)
+        assert k.shape == (len(ELEVS), len(FREQS), n_levels, batch)
         assert bool(torch.isfinite(k).all())
         assert k_error(k, w) <= 1e-3
 
