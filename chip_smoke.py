@@ -10,8 +10,9 @@ twenty phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions, the
      kernel build time, each kernel instantiation's registers and spills
-     (K5's without spills), and the warps of K1, K2's staged body, K5, K6
-     and K3's staged body resident per SM;
+     (K4's and K5's without spills), the warps of K1, K2's staged body, K4,
+     K5, K6 and K3's staged body resident per SM, and K4's blocks at the
+     K-matrix shape against its resident slots;
   1. the absorption kernel (K1) against its plain torch version on the card
      and against the function in float64 on the kernel's float32 tables;
   2. the RTE kernel (K2) against its plain torch version on the card and
@@ -29,16 +30,19 @@ twenty phases, each printing its own lines:
      and in phases 9 and
      13, each kernel's time also inside a CUDA graph of 20 calls, which
      leaves the host out;
-  5. the absorption tangent kernel (K4) against its plain version, all nine
-     releases, 256 profiles x 180 levels;
+  5. the absorption tangent kernel (K4) against its plain version and
+     against the function in float64 on the kernel's float32 tables, all
+     nine releases, 256 profiles x 180 levels;
   6. the K-matrix adjoint kernel (K5) for t, rho, lwc and rho+lwc against
      its plain version run in float64, 256 profiles x 10 elevations x 14
-     channels x 180 levels;
+     channels x 180 levels, and its LWC columns again on alpha rounded from
+     the float64 function;
   7. the K-matrix path, `kmatrix_batch_fast` on 256 profiles for t, rho and
      lwc, with the launch counts of K4 and both K5 wrappers;
   8. that K-matrix against the plain path in float64 on the card, and its
      physical signs;
-  9. CUDA-event times of K4, K5 and the K-matrix against the plain versions,
+  9. CUDA-event times of K4 (with its blocks against its resident slots),
+     K5 and the K-matrix against the plain versions,
      of `forward_batch` at the same batch, of the output permute alone, and
      peak device memory; K5 t on 32 profiles in a graph, one block per
      (elevation, channel);
@@ -243,7 +247,9 @@ def main() -> int:
         absorption as k1_mod)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (  # noqa: E501
         absorption_lb, absorption_lb_float64, absorption_lb_reference,
-        absorption_tangents_lb, absorption_tangents_lb_reference)
+        absorption_tangents_lb, absorption_tangents_lb_float64,
+        absorption_tangents_lb_reference, tangent_blocks,
+        tangent_resident_warps)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
         adjoint as k5_mod)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (  # noqa: E501
@@ -283,9 +289,9 @@ def main() -> int:
     for src, name, report in ptxas_report(
             lib_path.with_suffix(".log").read_text()):
         print(f"phase 0: ptxas: {src} {name}: {report}")
-        if src == "adjoint.cu":
+        if src in ("adjoint.cu", "absorption_tangents.cu"):
             check(not re.search(r"[1-9]\d* bytes spill", report),
-                  f"K5 {name} spills: {report}")
+                  f"{src} {name} spills: {report}")
     for what, warps, least in (
             (f"K1, F={len(freqs)}, R24",
              k1_mod.resident_warps(len(freqs), "R24"), 24),
@@ -300,6 +306,9 @@ def main() -> int:
             (f"K2 staged body with 4-byte copies, F={len(freqs)} L={L}",
              staged_resident_warps(L, False, "K2", len(freqs), False, False),
              42),
+            (f"K4, F={len(freqs)}, R24",
+             tangent_resident_warps(len(freqs), "R24"), 24),
+            ("K4, F=16, R20SD", tangent_resident_warps(16, "R20SD"), 24),
             ("K6 main pass, R24", k6.resident_warps("R24"), 32),
             ("K6 main pass, R20SD", k6.resident_warps("R20SD"), 32),
             (f"K3 staged body, L={L}", staged_resident_warps(L), 32),
@@ -307,6 +316,14 @@ def main() -> int:
               for which in ("t", "rho", "lwc", "rho_lwc"))):
         print(f"phase 0: {what}: {warps} warps resident per SM (of 64)")
         check(warps >= least, f"{what}: {warps} warps per SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k4_blocks = tangent_blocks(BK * L, len(freqs))
+    k4_slots = (tangent_resident_warps(len(freqs), "R24")
+                // (k1_mod.TANGENT_THREADS // 32) * sms)
+    print(f"phase 0: K4 at the K-matrix shape, B={BK} L={L} F={len(freqs)}: "
+          f"{k4_blocks} blocks of 128 points against {k4_slots} resident "
+          f"slots ({k4_slots // sms} an SM on {sms} SMs): "
+          f"{-(-k4_blocks // k4_slots)} wave(s)")
 
     # ---- phase 1: K1 against its plain version --------------------------
     def k1_case(model, batch, with_o3):
@@ -561,20 +578,35 @@ def main() -> int:
     for model, args in k4_args.items():
         got = absorption_tangents_lb(*args)
         ref = absorption_tangents_lb_reference(*args)
+        # float64 on the float32 numbers the kernel reads, 128 profiles at a
+        # time: what is left is the arithmetic's error
+        ref64 = [torch.cat(part, dim=2) for part in zip(*(
+            absorption_tangents_lb_float64(
+                freqs, *(a[:, s:s + 128] for a in args[1:5]), model)
+            for s in range(0, BK, 128)))]
         torch.cuda.synchronize()
         errs = []
-        for name, g, r, bound in zip(("alpha", "dalpha/dT", "dalpha/drho"),
-                                     got, ref, (1e-4, 1e-3, 1e-3)):
+        for name, g, r, r64, bound in zip(
+                ("alpha", "dalpha/dT", "dalpha/drho"), got, ref, ref64,
+                (1e-4, 1e-3, 1e-3)):
             check(bool(torch.isfinite(g).all()), f"K4 {model} {name}")
             err = (g - r).abs().amax(dim=(1, 2))
             rel = float((err / r.abs().amax(dim=(1, 2))).max())
+            scale64 = r64.abs().amax(dim=(1, 2))
+            rel64 = float(((g.double() - r64).abs().amax(dim=(1, 2))
+                           / scale64).max())
+            plain64 = float(((r.double() - r64).abs().amax(dim=(1, 2))
+                             / scale64).max())
             errs.append(float(err.max()))
             print(f"phase 5: K4 {model} B={BK} L={L}: {name} max|d| "
                   f"{float(err.max()):.3e}, max per-channel relative "
-                  f"{rel:.3e} (bound {bound:g})")
+                  f"{rel:.3e} (bound {bound:g}); against float64 on the "
+                  f"float32 tables {rel64:.3e}, the plain float32 version "
+                  f"{plain64:.3e}")
             check(rel <= bound, f"K4 {model} {name} relative error {rel}")
         if model == "R24":
             k4_err = max(errs)
+            alpha_rounded = ref64[0].float().contiguous()
 
     # ---- phase 6: K5 against its plain version in float64 ---------------
     cfg_k = dataclasses.replace(cfg, model="R24")
@@ -621,6 +653,17 @@ def main() -> int:
                   f"F={len(freqs)} L={L}: kernel vs plain float64 {err:.3e} "
                   f"(bound 1e-3); plain float32 vs float64 {err32:.3e}")
             check(err <= 1e-3, f"K5 {which} error {err}")
+    # the same for the LWC columns on alpha rounded from the float64 function
+    # (K4's alpha stands within 1e-6 of it): how far alpha's last bits alone
+    # move the error
+    for which in ("lwc", "rho_lwc"):
+        kernel, plain, args = k5_calls[which]
+        args = (args[0], alpha_rounded, *args[2:]) if which == "rho_lwc" \
+            else (*args[:2], alpha_rounded, *args[3:])
+        got, ref = kernel(*args), plain(*as64(args))
+        k_lwc = (got[1], ref[1]) if which == "rho_lwc" else (got, ref)
+        print(f"phase 6: K5 {which} k_lwc on alpha rounded from float64: "
+              f"kernel vs plain float64 {k_error(*k_lwc):.3e}")
 
     # ---- phase 7: the K-matrix path ---------------------------------------
     kprofiles = lbl.demo_batch(BK, L, device=dev)
@@ -678,7 +721,8 @@ def main() -> int:
         graph_times[kernel.__name__] = graph_ms(lambda: kernel(*args))
     print(f"phase 9: K4 tangents B={BK} L={L} F={len(freqs)}: kernel "
           f"{k4_ms:.4f} ms ({graph_times['absorption_tangents_lb']:.4f} ms in "
-          f"a graph), plain {k4_plain_ms:.4f} ms")
+          f"a graph), plain {k4_plain_ms:.4f} ms; {k4_blocks} blocks against "
+          f"{k4_slots} resident slots")
     for which, (k_ms, p_ms) in k5_ms.items():
         print(f"phase 9: K5 {which} B={BK} E={len(elevs)} F={len(freqs)} "
               f"L={L}: kernel {k_ms:.4f} ms "
@@ -686,7 +730,6 @@ def main() -> int:
               f"graph), plain {p_ms:.4f} ms")
     # the lone block: one block per (elevation, channel) at B=32, and no
     # more blocks than SMs, shows a column's walk with nothing beside it
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_lone = min(len(elevs), max(1, sms // len(freqs)))
     lone_args = list(k5_calls["t"][2])
     for i in (4, 6, 7, 9):           # ds, dds_dnl, dds_dk, r0cos: (E, ...)

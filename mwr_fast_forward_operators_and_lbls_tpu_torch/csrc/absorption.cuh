@@ -27,12 +27,17 @@ struct Layout {
   int h2o, o2, o3, gl;
 };
 
-// num / den by the special-function unit's approximate reciprocal (1 ulp):
-// for the line loops of K1 and K6 only.
-__device__ __forceinline__ float ratio(float num, float den) {
+// The special-function unit's approximate reciprocal (1 ulp): for the line
+// loops of K1, K4 and K6 only.
+__device__ __forceinline__ float rcp_approx(float den) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(den));
-  return num * r;
+  return r;
+}
+
+// num / den by that reciprocal.
+__device__ __forceinline__ float ratio(float num, float den) {
+  return num * rcp_approx(den);
 }
 
 }  // namespace

@@ -33,9 +33,11 @@ SIGNATURES = {
     "mwr_absorption_lb": [_P] * 6 + [_I, _P] + [_I] * 9 + [_P, _P],
     # nf, table_floats, n_lines
     "mwr_absorption_resident_warps": [_I] * 3,
-    # p, t, rho, lwc, freqs, nf, tables, table_size, n_h2o, n_o2, h2o_off,
+    # p, t, rho, lwc, freqs (on the host), nf, tables, n_h2o, n_o2, h2o_off,
     # o2_off, gl_off, n, out, out_dt, out_dr, stream
-    "mwr_absorption_tangents_lb": [_P] * 5 + [_I, _P] + [_I] * 7 + [_P] * 4,
+    "mwr_absorption_tangents_lb": [_P] * 5 + [_I, _P] + [_I] * 6 + [_P] * 4,
+    # nf, n_h2o, n_o2
+    "mwr_absorption_tangents_resident_warps": [_I] * 3,
     # cos_el64, freqs, alpha, z, n, t, E, F, L, B, alpha_is_mid, hk_ghz,
     # t_cosmic, earth_radius, tb, tau, tmr, trans, stream
     "mwr_forward_lb": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P] * 5,

@@ -12,7 +12,8 @@ from ...constants import H2O_MODELS
 from ...constants import physics as phys
 from .. import geometry, rte
 from ..absorption.h2o import _GL_W, _GL_X
-from .absorption import HEADER_FIELDS, pack_tables, table_layout
+from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, pack_tables,
+                         table_layout, tangent_groups)
 from .spectral import _check_model, line_state
 
 
@@ -143,6 +144,275 @@ def absorption_lb_merged(freqs, p, t, rho, lwc, model: str = "R24", o3=None):
     (`absorption_spectral_merged` with K1's two differences)."""
     return absorption_spectral_merged(list(freqs), p, t, rho, lwc, model,
                                       o3=o3, whole_grid=True)
+
+
+def _dmul(a, b):
+    """The product of two (value, d/dT, d/drho) triples."""
+    return (a[0] * b[0], a[1] * b[0] + a[0] * b[1], a[2] * b[0] + a[0] * b[2])
+
+
+def _dscale(k, a):
+    return tuple(k * x for x in a)
+
+
+def _tangents_group(f, p, t, rho, lwc, head, h2o, o2, gl):
+    """One group of K4 (`csrc/absorption_tangents.cu`): alpha, dalpha/dT,
+    dalpha/drho at the channels f (G, 1, ...) for points of any one shape,
+    in the order of the kernel's operations."""
+    cut = head["cutoff"]
+    f_lo, f_hi = float(f.min()), float(f.max())
+    # the point: every power of ti from one log2, its tangent x ti^x (-1/T)
+    ti = 300.0 / t
+    m_t = ti * (-1.0 / 300.0)
+    ti_t = ti * m_t
+    th1 = ti - 1.0
+    l2 = torch.log2(ti)
+
+    def pow_ti(x):
+        v = torch.exp2(x * l2)
+        return v, v * (x * m_t)
+
+    pvap = (rho * t / 217.0, rho * (1.0 / 217.0), t * (1.0 / 217.0))
+    pda = (p - pvap[0], -pvap[1], -pvap[2])
+    zero = torch.zeros_like(f * p)
+    acc = (zero, zero, zero)
+
+    # O2 lines: one merged rational each, whose q has tangents that do not
+    # depend on the channel
+    b = pow_ti(head["o2_x"])
+    hf = head["h2o_factor"]
+    den = (0.001 * (pda[0] * b[0] + hf * pvap[0] * ti),
+           0.001 * ((pda[1] * b[0] + pda[0] * b[1])
+                    + hf * (pvap[1] * ti + pvap[0] * ti_t)),
+           0.001 * (pda[2] * b[0] + hf * pvap[2] * ti))
+    pe2 = (den[0] * den[0], 2.0 * den[0] * den[1], 2.0 * den[0] * den[2])
+    ybase = ((0.001 * p * b[0], 0.001 * p * b[1], torch.zeros_like(p))
+             if head["mixing_basis_p"] != 0.0 else den)
+    o2c = dict(zip(O2_FIELDS, o2))
+    for line in range(o2.shape[1]):
+        f0, w300, be = (o2c[k][line] for k in ("f", "w300", "be"))
+        df = _dscale(w300, den)
+        dfsq = _dscale(w300 * w300, pe2)
+        sv = o2c["s300"][line] / (f0 * f0) * torch.exp(-be * th1)
+        sn = (sv, sv * (-be * ti_t))
+        yy = o2c["y1"][line] * th1 + o2c["y0"][line]
+        yy_t = o2c["y1"][line] * ti_t
+        y = (ybase[0] * yy, ybase[1] * yy + ybase[0] * yy_t, ybase[2] * yy)
+        gg = o2c["g1"][line] * th1 + o2c["g0"][line]
+        gg_t = o2c["g1"][line] * ti_t
+        dfg = _dmul(df, (pe2[0] * gg + 1.0, pe2[1] * gg + pe2[0] * gg_t,
+                         pe2[2] * gg))
+        nn = o2c["dnu1"][line] * th1 + o2c["dnu0"][line]
+        nn_t = o2c["dnu1"][line] * ti_t
+        dnu = (pe2[0] * nn, pe2[1] * nn + pe2[0] * nn_t, pe2[2] * nn)
+        c2 = (2.0 * dnu[0] + 2.0 * f0, 2.0 * dnu[1], 2.0 * dnu[2])
+        dfg_s = (sn[0] * dfg[0], sn[1] * dfg[0] + sn[0] * dfg[1],
+                 sn[0] * dfg[2])
+        sy = (sn[0] * y[0], sn[1] * y[0] + sn[0] * y[1], sn[0] * y[2])
+        yc = _dmul(sy, c2)
+        c2sq = (c2[0] * c2[0], 2.0 * c2[0] * c2[1], 2.0 * c2[0] * c2[2])
+        k1 = _dmul(dfsq, c2sq)
+        k2 = tuple(a - b for a, b in zip(_dmul(dfg_s, c2sq),
+                                         _dscale(2.0, _dmul(dfsq, yc))))
+        k3 = tuple(2.0 * a + b for a, b in zip(dfg_s, yc))
+        q_t = dfsq[1] - c2[0] * dnu[1]
+        q_r = dfsq[2] - c2[0] * dnu[2]
+        n_t, n_r = k2[1] + q_t * k3[0], k2[2] + q_r * k3[0]
+        d1 = (f - f0) - dnu[0]
+        q = d1 * (d1 + c2[0]) + dfsq[0]
+        dv = q * q + k1[0]
+        s = (q * k3[0] + k2[0]) / dv
+        acc = (acc[0] + s,
+               acc[1] + ((q * k3[1] + n_t) - s * (q * (2.0 * q_t) + k1[1]))
+               / dv,
+               acc[2] + ((q * k3[2] + n_r) - s * (q * (2.0 * q_r) + k1[2]))
+               / dv)
+
+    # the clamped O2 term, N2, cloud liquid and the water continuum, over f^2
+    f2 = f * f
+    dfnr = _dscale(head["wb300"], den)
+    ti_inv = t / 300.0
+    knr = head["nonres"]
+    k_nr = (knr * dfnr[0] * ti_inv,
+            knr * (dfnr[1] * ti_inv + dfnr[0] * (1.0 / 300.0)),
+            knr * dfnr[2] * ti_inv)
+    dfnr2 = (dfnr[0] * dfnr[0], 2.0 * dfnr[0] * dfnr[1],
+             2.0 * dfnr[0] * dfnr[2])
+    ti3 = (ti * ti * ti, 3.0 * ti * ti * ti_t)
+    o2s = _dscale(head["o2_scale"], (pda[0] * ti3[0],
+                                     pda[1] * ti3[0] + pda[0] * ti3[1],
+                                     pda[2] * ti3[0]))
+    rn = 1.0 / (f2 + dfnr2[0])
+    nr = k_nr[0] * rn
+    inner = (acc[0] + nr, acc[1] + (k_nr[1] - nr * dfnr2[1]) * rn,
+             acc[2] + (k_nr[2] - nr * dfnr2[2]) * rn)
+    o2_term = _dmul(o2s, inner)
+    on = o2_term[0] > 0.0
+    total = tuple(torch.where(on, x, 0.0) for x in o2_term)
+    n2t = pow_ti(head["n2_exp"])
+    pda2 = (pda[0] * pda[0], 2.0 * pda[0] * pda[1], 2.0 * pda[0] * pda[2])
+    n2k = _dscale(head["n2_coef"], (pda2[0] * n2t[0],
+                                    pda2[1] * n2t[0] + pda2[0] * n2t[1],
+                                    pda2[2] * n2t[0]))
+    fdep = (0.5 + 0.5 / (1.0 + (f / 450.0) * (f / 450.0))
+            if head["n2_fdep"] != 0.0 else torch.ones_like(f))
+    total = tuple(a + fdep * b for a, b in zip(total, n2k))
+    tcf, tcs = pow_ti(head["xcf"]), pow_ti(head["xcs"])
+    cf, cs = head["cf"], head["cs"]
+    con_a = (cf * tcf[0] * pda[0] + cs * tcs[0] * pvap[0],
+             (cf * tcf[1] * pda[0] + cf * tcf[0] * pda[1])
+             + (cs * tcs[1] * pvap[0] + cs * tcs[0] * pvap[1]),
+             cf * tcf[0] * pda[2] + cs * tcs[0] * pvap[2])
+    con_b = _dmul(con_a, pvap)
+    theta1, theta1_t = 1.0 - ti, -ti_t
+    eps0, eps0_t = 77.66 - 103.3 * theta1, -103.3 * theta1_t
+    eps1, eps1_t = 0.0671 * eps0, 0.0671 * eps0_t
+    inv_fp = 1.0 / (20.1 * torch.exp(7.88 * theta1))
+    inv_fp_t = -inv_fp * (7.88 * theta1_t)
+    e01, e01_t = eps0 - eps1, eps0_t - eps1_t
+    e12, e12_t = eps1 - 3.52, eps1_t
+    u, u_t = f * inv_fp, f * inv_fp_t
+    v, v_t = u * (1.0 / 39.8), u_t * (1.0 / 39.8)
+    ru, rv = 1.0 / (u * u + 1.0), 1.0 / (v * v + 1.0)
+    ru_t, rv_t = -2.0 * u * u_t * ru * ru, -2.0 * v * v_t * rv * rv
+    re = 3.52 + e01 * ru + e12 * rv
+    re_t = e01_t * ru + e01 * ru_t + e12_t * rv + e12 * rv_t
+    im = -(e01 * (u * ru) + e12 * (v * rv))
+    im_t = -(e01_t * (u * ru) + e01 * (u_t * ru + u * ru_t)
+             + e12_t * (v * rv) + e12 * (v_t * rv + v * rv_t))
+    dd = (re + 2.0) * (re + 2.0) + im * im
+    aimag = 3.0 * im / dd
+    aimag_t = (3.0 * im_t - aimag * 2.0 * ((re + 2.0) * re_t + im * im_t)) / dd
+    lk = -0.06286 * lwc * f * (1.0 / f2)
+    acc = (total[0] + (lk * aimag + con_b[0]),
+           total[1] + (lk * aimag_t + con_b[1]), total[2] + con_b[2])
+
+    # H2O lines: one rational in q where both halves lie inside the cutoff
+    # for the whole group, the halves apart otherwise
+    h_v, h_r = 0.3183e-4 * (3.344e16 * rho), 0.3183e-4 * 3.344e16
+    ti25 = pow_ti(2.5)
+    cut2 = cut * cut
+    two_base = (zero, zero, zero)
+    hc = dict(zip(H2O_FIELDS, h2o))
+    gl_x, gl_w = gl[:16], gl[16:]
+
+    def add_line(into, sn, aw, res, res_w):
+        return (into[0] + sn[0] * res,
+                into[1] + (sn[1] * res + aw[0] * res_w),
+                into[2] + (sn[2] * res + aw[1] * res_w))
+
+    for line in range(h2o.shape[1]):
+        fl = hc["fl"][line]
+        flf = float(fl)
+        sd = bool(hc["w2"][line] != 0.0) or bool(hc["ws2"][line] != 0.0)
+        tix, tixs = pow_ti(hc["x"][line]), pow_ti(hc["xs"][line])
+        a, a_t = hc["w3"][line] * tix[0], hc["w3"][line] * tix[1]
+        bw, bw_t = hc["ws"][line] * tixs[0], hc["ws"][line] * tixs[1]
+        w = (a * pda[0] + bw * pvap[0],
+             (a_t * pda[0] + a * pda[1]) + (bw_t * pvap[0] + bw * pvap[1]),
+             a * pda[2] + bw * pvap[2])
+        wsq = w[0] * w[0]
+        s = (hc["s1"][line] / (fl * fl)) * ti25[0] \
+            * torch.exp(hc["b2"][line] * (1.0 - ti))
+        s_t = s * m_t * (2.5 - hc["b2"][line] * ti)
+        sn = (s * h_v, s_t * h_v, s * h_r)
+        rcut = 1.0 / (cut2 + wsq)
+        bv = w[0] * rcut
+        bv_w = rcut - 2.0 * bv * bv
+        aw = (sn[0] * w[1], sn[0] * w[2])
+        both = all(abs(x) < float(cut) for x in
+                   (f_lo - flf, f_hi - flf, f_lo + flf, f_hi + flf))
+        if both and not sd:
+            csq = 4.0 * fl * fl
+            two_base = add_line(two_base, sn, aw, 2.0 * bv, 2.0 * bv_w)
+            q = (f - fl) * (f + fl) + wsq
+            e = 2.0 * q + csq
+            den_q = q * q + wsq * csq
+            sh = w[0] * e / den_q
+            sh_w = ((e + 4.0 * wsq) - sh * (2.0 * w[0] * e)) / den_q
+            acc = add_line(acc, sn, aw, sh, sh_w)
+            continue
+        d1, d2 = f - fl, f + fl
+        near_in, far_in = d1.abs() < cut, d2.abs() < cut
+        far = w[0] / (d2 * d2 + wsq)
+        res = torch.where(far_in, far - bv, 0.0)
+        res_w = torch.where(far_in, (1.0 / (d2 * d2 + wsq) - 2.0 * far * far)
+                            - bv_w, 0.0)
+        if not sd:
+            near = w[0] / (d1 * d1 + wsq)
+            res = res + torch.where(near_in, near - bv, 0.0)
+            res_w = res_w + torch.where(
+                near_in, (1.0 / (d1 * d1 + wsq) - 2.0 * near * near) - bv_w,
+                0.0)
+        acc = add_line(acc, sn, aw, res, res_w)
+        if sd:
+            a2, a2_t = hc["w2"][line] * tix[0], hc["w2"][line] * tix[1]
+            b2, b2_t = hc["ws2"][line] * tixs[0], hc["ws2"][line] * tixs[1]
+            g2 = (a2 * pda[0] + b2 * pvap[0],
+                  (a2_t * pda[0] + a2 * pda[1])
+                  + (b2_t * pvap[0] + b2 * pvap[1]),
+                  a2 * pda[2] + b2 * pvap[2])
+            c0 = tuple(x - 1.5 * y for x, y in zip(w, g2))
+            ci2 = d1 * d1
+            vs = ps = qs = 0.0
+            for xk, wk in zip(gl_x, gl_w):
+                cr = g2[0] * xk + c0[0]
+                dk = cr * cr + ci2
+                sh = cr / dk
+                wd = wk * (1.0 / dk - 2.0 * sh * sh)
+                vs = vs + wk * sh
+                ps = ps + wd
+                qs = qs + wd * xk
+            res = vs - bv
+            res_t = ps * c0[1] + (qs * g2[1] - bv_w * w[1])
+            res_r = ps * c0[2] + (qs * g2[2] - bv_w * w[2])
+            acc = (acc[0] + torch.where(near_in, sn[0] * res, 0.0),
+                   acc[1] + torch.where(near_in, sn[1] * res + sn[0] * res_t,
+                                        0.0),
+                   acc[2] + torch.where(near_in, sn[2] * res + sn[0] * res_r,
+                                        0.0))
+    return tuple(f2 * (x - y) for x, y in zip(acc, two_base))
+
+
+def absorption_tangents_grouped(freqs, p, t, rho, lwc, model: str = "R24",
+                                group=None):
+    """K4's arithmetic (`csrc/absorption_tangents.cu`) in the inputs' dtype:
+    alpha, dalpha/dT and dalpha/drho, each (F, *shape).
+
+    The channels go in groups of `group` (the kernel's rule,
+    `tangent_groups`, when None), the last group filled up with its last
+    channel, and each group forms its own line state.  Every power of
+    ti = 300 / T is exp2(x log2 ti) with the tangent x ti^x (-1 / T); the
+    strengths carry 1 / f_line^2 (and the H2O density scale); an O2 line is
+    K1's one rational (k2 + q k3) / (q^2 + k1), an H2O line whose halves lie
+    inside the cutoff for the whole group is w (c^2 + 2 q) / (q^2 + w^2 c^2),
+    each with its tangents by the quotient rule from the same divide; the
+    other terms are taken over f^2 into the same sum, which is multiplied by
+    f^2 once at the end.  The tangents come from these formulas, not from
+    automatic differentiation.  Divides are IEEE here; the kernel takes an
+    approximate reciprocal in the line loops.
+    """
+    _check_model(model)
+    lay = table_layout(model, False)
+    table = torch.as_tensor(pack_tables(model, False), dtype=p.dtype,
+                            device=p.device)
+    head = {k: float(v) for k, v in zip(HEADER_FIELDS,
+                                        table[:len(HEADER_FIELDS)])}
+    h2o = table[lay.h2o:lay.o2].reshape(len(H2O_FIELDS), lay.n_h2o)
+    o2 = table[lay.o2:lay.o3].reshape(len(O2_FIELDS), lay.n_o2)
+    gl = table[lay.gl:]
+    freqs = list(freqs)
+    nf = len(freqs)
+    per = tangent_groups(nf)[1] if group is None else group
+    parts = [[], [], []]
+    for s0 in range(0, nf, per):
+        slots = [freqs[min(s0 + c, nf - 1)] for c in range(per)]
+        f = torch.as_tensor(slots, dtype=p.dtype, device=p.device)
+        got = _tangents_group(f.reshape((-1,) + (1,) * p.ndim), p, t, rho,
+                              lwc, head, h2o, o2, gl)
+        for part, x in zip(parts, got):
+            part.append(x[:min(per, nf - s0)])
+    return tuple(torch.cat(part) for part in parts)
 
 
 def staged_chords(elevations, z, n, float64: bool = True) -> torch.Tensor:

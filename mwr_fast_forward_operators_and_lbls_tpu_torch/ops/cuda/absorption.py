@@ -3,14 +3,16 @@
 
 `absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km];
 `absorption_tangents_lb` returns alpha with its elementwise partials in T and
-rho (K4, the same function on dual numbers).  On CPU tensors each runs its
-plain torch version; on CUDA tensors it launches its kernel or raises.
+rho (K4, the same function with both tangents carried through it).  On CPU
+tensors each runs its plain torch version; on CUDA tensors it launches its
+kernel or raises.
 
 K1 evaluates one merged rational per line from a per-point state, as K6
 does: `_mirrors.absorption_lb_merged` follows its order of operations in
 plain torch and `absorption_lb_float64` is the function in float64 on the
 float32 numbers the kernel reads, so the tests can tell the arithmetic's
-error from the tables'.
+error from the tables'.  K4 has the same algebra with both tangents, in
+groups of channels: `_mirrors.absorption_tangents_grouped`.
 """
 
 import ctypes
@@ -23,7 +25,6 @@ import torch
 from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import total_absorption
 from ..absorption.h2o import _GL_W, _GL_X
-from ..tensors import constant_vector
 from . import _build
 
 # Scalar slots at the head of the packed table, in the order of the `Header`
@@ -128,6 +129,21 @@ def absorption_lb_float64(freqs, p, t, rho, lwc, model: str = "R24", o3=None):
     from . import spectral        # which imports this module
     return spectral.absorption_spectral_float64(
         list(freqs), p, t, rho, lwc, model, o3=o3)
+
+
+def absorption_tangents_lb_float64(freqs, p, t, rho, lwc, model: str = "R24"):
+    """alpha, dalpha/dT and dalpha/drho (F, L, B) in float64 on exactly the
+    float32 numbers K4 reads: two jvp passes of `absorption_lb_float64`."""
+    p, t, rho, lwc = (a.double() for a in (p, t, rho, lwc))
+
+    def alpha_of(t_, rho_):
+        return absorption_lb_float64(freqs, p, t_, rho_, lwc, model)
+
+    alpha, da_t = torch.func.jvp(lambda x: alpha_of(x, rho), (t,),
+                                 (torch.ones_like(t),))
+    _, da_rho = torch.func.jvp(lambda x: alpha_of(t, x), (rho,),
+                               (torch.ones_like(rho),))
+    return alpha, da_t, da_rho
 
 
 def absorption_partials_lb(freqs, p, t, rho, lwc, model: str = "R24",
@@ -258,11 +274,30 @@ def _kernel_args(freqs, arrays: dict, model: str, with_o3: bool, tables):
     return layout, tables
 
 
+# K4's channel groups (csrc/absorption_tangents.cu): a thread evaluates one
+# group of at most TANGENT_GROUP_MAX channels, the groups on the grid's y
+# axis, TANGENT_THREADS points a block.
+TANGENT_GROUP_MAX = 8
+TANGENT_THREADS = 128
+
+
+def tangent_groups(n_channels: int) -> tuple:
+    """(groups, channels a group) of K4 at `n_channels`: groups of at most
+    TANGENT_GROUP_MAX channels, as even as they come (14: two of 7)."""
+    groups = -(-n_channels // TANGENT_GROUP_MAX)
+    return groups, -(-n_channels // groups)
+
+
+def tangent_blocks(n_points: int, n_channels: int) -> int:
+    """Blocks of one K4 launch on `n_points` points at `n_channels`."""
+    return -(-n_points // TANGENT_THREADS) * tangent_groups(n_channels)[0]
+
+
 def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
                            tables=None):
     """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] -> alpha,
     dalpha/dT [Np/km/K] and dalpha/drho [Np/km per g/m^3], each (F, L, B),
-    in one dual-number pass.
+    in one pass that carries both tangents.
 
     CPU tensors take the plain version.  CUDA tensors (float32, contiguous)
     launch K4; `tables` is the packed `line_tables(model, False, device)`
@@ -272,13 +307,14 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
         return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model)
     layout, tables = _kernel_args(freqs, dict(p=p, t=t, rho=rho, lwc=lwc),
                                   model, False, tables)
-    f = constant_vector(freqs, torch.float32, p.device)
     out = torch.empty((3, len(freqs), *p.shape), dtype=torch.float32,
                       device=p.device)
+    # K4 takes its channels by value, as K1 does
+    f = (ctypes.c_float * len(freqs))(*freqs)
     with torch.cuda.device(p.device):
         err = _build.library().mwr_absorption_tangents_lb(
             p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
-            f.data_ptr(), len(freqs), tables.data_ptr(), layout.size,
+            ctypes.addressof(f), len(freqs), tables.data_ptr(),
             layout.n_h2o, layout.n_o2, layout.h2o, layout.o2, layout.gl,
             p.numel(), out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
@@ -290,3 +326,14 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
 
 
 absorption_tangents_lb.launches = 0
+
+
+def tangent_resident_warps(n_channels: int = 14, model: str = "R24") -> int:
+    """Warps of K4 that the current CUDA device keeps resident per SM at
+    `n_channels` channels, from the occupancy calculator."""
+    layout = table_layout(model, False)
+    warps = _build.library().mwr_absorption_tangents_resident_warps(
+        n_channels, layout.n_h2o, layout.n_o2)
+    if warps < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-warps}")
+    return warps

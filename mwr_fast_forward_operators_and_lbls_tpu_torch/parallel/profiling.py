@@ -39,11 +39,13 @@ paired.  The strengths carry 1 / f_line^2 and the sums are multiplied by
 f^2 once per (point, frequency).  All powers of a point have the one base
 300 / T, so a^x is charged as exp2(x log2 a): one logarithm per point and
 one exponential per power, as K1 takes them (the multiply is left out, which
-keeps the fp32 count where it was); K4 and K6 call powf, a logarithm and an
+keeps the fp32 count where it was); K6 calls powf, a logarithm and an
 exponential each time.  A qSD node's c_r, its weight times c_r
-and c_r^2 are charged once per (point, line, node).  On K4's dual numbers
-the merged forms cost more than they save, so there the halves stay apart
-and the count is that of the formulas as written.  Where u = x / T < 0.25
+and c_r^2 are charged once per (point, line, node).  K4 carries the partials
+in T and rho through the same rationals, each with its tangents from the
+line's one divide (`_K4_NEEDED`); two O2 lines per divide save a divide for
+more fp32 instructions there, so it is charged the lesser of the two forms
+in each resource, as Planck below.  Where u = x / T < 0.25
 the Planck radiance x / expm1(u) of a level may be taken as its series
 T (1 - u / 2 + u^2 / 12 - u^4 / 720), exact in float32 there: no
 exponential and one divide less for about ten more instructions of the fp32
@@ -88,6 +90,7 @@ import numpy as np
 import torch
 
 from ..constants import HK_GHZ, H2O_MODELS, O2_MODELS, hatpro, o3_lines
+from ..ops.cuda import absorption as absorption_mod
 from ..ops.cuda import adjoint as adjoint_mod
 from ..ops.cuda import chain as chain_mod
 
@@ -302,17 +305,14 @@ def _charge(body: dict, cost: dict, times: dict) -> _Ops:
     return total
 
 
-# ---- K4's absorption body (csrc/absorption_tangents.cu) and the function's
-# ---- counts; K1's and K6's bodies are below
+# ---- the absorption function on floats (K1, K6) -----------------------------
 #
-# Each operation of the body by kind.  f* are operations on plain floats
-# (the same in every mode); v* are operations on the body's value type V:
-# float for K1 and K6, the dual number {v, d/dT, d/drho} for K4, whose
-# operators (absorption.cuh, `struct Dual`) cost what _DUAL says.
-#   (K6 shares the function's count on floats, `_ABSORPTION_NEEDED_FLOAT`.)
+# Each operation by kind.  f* are operations on the table's and the grid's
+# numbers, v* the same operations on values that hang on the point (the
+# listings of the function name them apart); on floats each costs one.
 #   vmul V*V, vmuls V*float, vadd V+-V, vadds V+-float, rsub float-V,
-#   vneg -V, vdiv V/V, vdivs V/float, sdivv float/V, vexp exp_, vpow pow_,
-#   vmax0 max0, vsel a select between two V, cmp a compare.
+#   vneg -V, vdiv V/V, vdivs V/float, sdivv float/V, vexp exp, vpow a power,
+#   vmax0 max(V, 0), vsel a select, cmp a compare.
 _FLOAT = {
     "fmul": _Ops(mul=1), "fadd": _Ops(add=1), "fdiv": _Ops(div=1),
     "fexp": _Ops(exp=1), "fpow": _Ops(exp=2), "cmp": _Ops(other=1),
@@ -324,165 +324,99 @@ _FLOAT = {
 }
 # one power of a point's shared base, given its logarithm (K1's body)
 _FLOAT["fpw"] = _Ops(exp=1, mul=1)
-_DUAL = dict(
-    _FLOAT,
-    vmul=_Ops(mul=5, add=2), vmuls=_Ops(mul=3), vadd=_Ops(add=3),
-    rsub=_Ops(add=1, other=2), vneg=_Ops(other=3),
-    vdiv=_Ops(div=1, mul=5, add=2), vdivs=_Ops(div=2, mul=2),
-    sdivv=_Ops(div=1, mul=5), vexp=_Ops(exp=1, mul=2),
-    vpow=_Ops(exp=2, div=1, mul=3), vmax0=_Ops(other=4),
-    vsel=_Ops(other=3))
-
 # What the function is charged: a power is one exponential, the point's one
 # logarithm is charged apart ("point_log").
 _FLOAT_NEEDED = dict(_FLOAT, fpow=_Ops(exp=1), vpow=_Ops(exp=1))
-_DUAL_NEEDED = dict(_DUAL, fpow=_Ops(exp=1),
-                    vpow=_Ops(exp=1, div=1, mul=3))
 
-_QSD_NODE = "vmuls vadd vmul vadds vmuls vdiv vadd "
-_POINT = ("sdivv vadds vmul vdivs rsub vpow fmul vmuls*2 "
-          "vpow*2 vmuls*2 vmul*2 vadd vmul "
-          "vpow vmul vmuls vmul vadd vmuls vmul vmuls cmp fmul vmuls vsel "
-          "vmul*2 vmuls vmul vpow "
-          "rsub vmuls rsub vmuls vmuls vexp vmuls vmuls vadd vadds")
 _FDEP = "fdiv fmul fadd fdiv fadd cmp"
-# What the body of K4 executes (K1's own body on floats is `_K1_CODED`): one
-# thread per point evaluates all channels, its "tile", every Lorentzian half
-# with a divide of its own.
-_ABSORPTION_CODED = {
-    # once per (point, tile): ti, th1, pvap, pda, ti25, cut2, h2o_scale,
-    # con_b; the O2 block's b, den, pe2, dfnr, ybase; ti3; the dry
-    # continuum's n2_b, n2_t; the liquid term's theta1, eps0, eps1, fp, fs
-    # and the two differences of eps hoisted out of the channel loop
-    "point": _POINT,
-    # once per (point, tile, H2O line): tix, tixs, width, wsq, s, base, the
-    # two tests of `sd`, c0, inv_fl
-    "h2o_line": ("vpow*2 vmuls vmul vmuls vmul vadd vmul "
-                 "rsub vmuls vexp vmuls vmul vadds vdiv cmp*2 vmuls vadd "
-                 "fdiv"),
-    # more per (point, tile, qSD line): gamma2
-    "h2o_sd_line": "vmuls vmul vmuls vmul vadd",
-    # per (point, frequency, H2O line), always: df1, df2, the two cutoff
-    # tests, r, r*r, s*res*(r*r) and the sum
-    "h2o_pair": "fadd*2 cmp*2 fmul*2 vmul vmuls vadd",
-    # per (point, frequency, line) inside the cutoff: a Lorentzian half
-    # minus `base`, added to res (the near and the mirror half cost the same)
-    "h2o_half": "fmul vadds vdiv vadd*2",
-    # the near half of a qSD line: ci2, 16 quadrature nodes, the update
-    "h2o_sd_half": "fmul vadd*2 " + _QSD_NODE * 16,
-    # once per (point, tile, O2 line): df, dfsq, y, strength, dfg, dnu,
-    # inv_f0
-    "o2_line": ("vmuls vmul vmuls vadds vmul vmuls vexp vmuls "
-                "vmuls vadds vmul vadds vmul vmuls vadds vmul fdiv"),
-    # per (point, frequency, O2 line): d1, d2, sf1, sf2, r, r*r, the sum
-    "o2_pair": ("fadd rsub fadd vadds vmul vadd vmul vadd vdiv "
-                "vmul vadd vmul vadd vdiv fmul*2 vadd vmul vmuls vadd"),
-    # per (point, frequency): the tail of the channel loop
-    "channel": ("fmul vmul vmuls*2 vadd "                      # h2o
-                "fmul*2 vmuls vmul vadds vmul vdiv "           # nonres
-                "vadd vmuls vmul*2 vmax0 "                     # o2
-                "vmuls*3 vmul "                                # n2
-                "sdivv*2 vmul vadds vmul vadds "               # u, v
-                "vdiv*2 vadds vadd "                           # re
-                "vneg vmul vdiv vmul vdiv vadd "               # im
-                "vmuls vadds vmul*2 vadd vdiv "                # aimag
-                "vmuls*3 vadd*3"),                             # liq, alpha
-    # more per (point, frequency) for the 2017 dry continuum's fdep
-    "channel_fdep": _FDEP,
-    # O3 (K1 only, floats): per point, per line, per (frequency, line),
-    # per frequency
-    "o3_point": "fmul*3 fdiv",
-    "o3_line": "fpow fmul*2 fmul fadd fmul fexp fmul*2 fdiv",
-    "o3_pair": "fadd*2 fmul*2 fadd*2 fdiv*2 fadd fmul*4 fadd fmul fadd",
-    "o3_channel": "fmul fadd",
-}
-# What the function needs with the halves of a line kept apart, as K4's dual
-# numbers take it (the module docstring has the rules): the entries that
-# change, and those charged once per call on the frequency grid.
-_ABSORPTION_NEEDED = dict(
-    _ABSORPTION_CODED,
-    # once per point; beside the body's: 1 / fp, dfnr^2, n2_b n2_t and
-    # o2_scale pda ti3, which the body forms per channel
-    point=_POINT + " sdivv vmul*2 vmuls",
-    # 1 / f_line hangs on the table alone: once per call and line, not per
-    # point as the body forms it
-    h2o_line=_ABSORPTION_CODED["h2o_line"].removesuffix(" fdiv"),
-    o2_line=_ABSORPTION_CODED["o2_line"].removesuffix(" fdiv"),
-    o3_line=_ABSORPTION_CODED["o3_line"].removesuffix(" fdiv"),
-    line_grid="fdiv",
+# What the function needs on floats, each line as one rational in q (the
+# module docstring has the rules), per point unless said otherwise.
+_ABSORPTION_NEEDED_FLOAT = {
+    # ti, th1, pvap, pda, ti25, cut2, the H2O scale, con_b; the O2 block's
+    # b, den, pe2, dfnr, ybase; ti3; N2's n2_b, n2_t; the liquid term's
+    # theta1, eps0, eps1, fp, fs and the two differences of eps; 1 / fp,
+    # dfnr^2, n2_b n2_t and o2_scale pda ti3
+    "point": ("sdivv vadds vmul vdivs rsub vpow fmul vmuls*2 "
+              "vpow*2 vmuls*2 vmul*2 vadd vmul "
+              "vpow vmul vmuls vmul vadd vmuls vmul vmuls cmp fmul vmuls vsel "
+              "vmul*2 vmuls vmul vpow "
+              "rsub vmuls rsub vmuls vmuls vexp vmuls vmuls vadd vadds "
+              "sdivv vmul*2 vmuls"),
     # log2(300 / T), once per point, for all its powers
-    point_log="fexp",
-    # per (frequency, H2O line) on the grid alone: df1, df2, the cutoff
-    # tests, (f / fl)^2; per half inside the cutoff: df^2
-    h2o_grid="fadd*2 cmp*2 fmul*2", h2o_grid_half="fmul",
-    # per (point, frequency, H2O line): s res (f / fl)^2 and the sum
-    h2o_pair="vmul vmuls vadd",
-    # one half inside the cutoff: df^2 + wsq, the divide, minus base
-    h2o_half="vadds vdiv vadd",
-    h2o_sd_half="vadd*2 " + _QSD_NODE * 16,
-    # per (frequency, O2 line) on the grid alone: f -+ f0, (f / f0)^2
-    o2_grid="fadd*2 fmul*2",
-    # per (point, frequency, O2 line), the halves divided apart: d1, d2;
-    # the numerators dfg +- d y; the denominators d^2 + dfsq; two divides;
-    # times the strength and (f / f0)^2; the sum
-    o2_pair_apart=("rsub vadds vmul*2 vadd*2 vmul*2 vadd*2 vdiv*2 vadd "
-                   "vmul vmuls vadd"),
+    "point_log": "fexp",
+    # per H2O line: tix, tixs, width, wsq, s, base, the two tests of `sd`;
+    # the strength with the density scale and 1 / fl^2, times the width and
+    # times the base; k1, k2, k3; the running sum of the bases
+    "h2o_line": ("vpow*2 vmuls vmul vmuls vmul vadd vmul rsub vmuls vexp "
+                 "vmuls vmul vadds vdiv cmp*2 vmuls vadd "
+                 "vmul vmuls vmul*4 vmuls vadd"),
+    # more per qSD line: gamma2, and per node c_r, its weight, c_r^2
+    "h2o_sd_line": ("vmuls vmul vmuls vmul vadd "
+                    + "vmuls vadd vmuls vmul vmul " * 16),
+    # per O2 line: df, dfsq, y, strength, dfg, dnu; c = 2 (f0 + dnu), the
+    # strength over f0^2, its products with dfg and with y c, k1, k2, k3
+    "o2_line": ("vmuls vmul vmuls vadds vmul vmuls vexp vmuls "
+                "vmuls vadds vmul vadds vmul vmuls vadds vmul "
+                "vadds vmuls*2 vmul*7 vadd*2 vmuls"),
+    # per (frequency, H2O line) on the grid alone: d1, d2, the cutoff tests,
+    # d1 d2; per half inside the cutoff: d^2
+    "h2o_grid": "fadd*2 cmp*2 fmul", "h2o_grid_half": "fmul",
+    # both halves inside the cutoff: q, the numerator, the denominator, the
+    # divide, the sum
+    "h2o_both": "vadds vmul vadd vmul vadd vdiv vadd",
+    # one half: d^2 + wsq, the divide, the sum
+    "h2o_half": "vadds vdiv vadd",
+    # the near half of a qSD line, per node: c_r^2 + d1^2, the divide, the sum
+    "h2o_sd_half": "vadds vdiv vadd " * 16,
+    # 1 / f_line^2 per line of the table
+    "line_grid": "fmul fdiv",
+    # per (frequency, O2 line) on the grid alone: f - f0
+    "o2_grid": "fadd",
+    # per (point, frequency, O2 line): d1, d2, q, the numerator, the
+    # denominator
+    "o2_rational": "rsub vadd vmul vadd vmul vadd vmul vadd",
+    # per (point, frequency, two O2 lines): n_a D_b + n_b D_a, D_a D_b, the
+    # divide, the sum; the odd line out: the divide and the sum
+    "o2_two": "vmul*2 vadd vmul vdiv vadd", "o2_one": "vdiv vadd",
     # per frequency on the grid alone: fc^2 and its products with the
     # table's constants
-    channel_grid="fmul*4",
+    "channel_grid": "fmul*4",
+    # more per frequency for the 2017 dry continuum's fdep
+    "channel_fdep": _FDEP,
     # per (point, frequency): the water continuum; the non-resonant O2 term
     # and the clamp; N2; u = fc / fp and v = u / 39.8, 1 / (1 + u^2),
     # 1 / (1 + v^2), re and im from the same two reciprocals; aimag; the
-    # liquid term and the sum
-    channel=("vmul vmuls vadd "
-             "vmuls vadds vmul vdiv vadd vmul vmax0 "
-             "vmuls "
-             "vmuls*2 vmul*2 vadds*2 sdivv*2 vmul*2 vadd*2 vmul*2 vadd vneg "
-             "vadds vmul*2 vadd vdiv vmuls "
-             "vmuls*2 vadd*3"),
-    # per (frequency, O3 line) on the grid alone; per (point, frequency,
-    # line): A, B, A + B, width (A + B), A B, one divide, s res r^2, the sum
-    o3_grid="fadd*2 fmul*4",
-    o3_pair="fadd*3 fmul*2 fdiv fmul*2 fadd",
-)
-# The same on floats, with each line as one rational in q (the module
-# docstring has the rules): the entries that differ from the above.
-_QSD_NODE_SETUP = "vmuls vadd vmuls vmul vmul "    # c_r, its weight, c_r^2
-_ABSORPTION_NEEDED_FLOAT = dict(
-    _ABSORPTION_NEEDED,
-    # more per (point, H2O line): the strength with the density scale and
-    # 1 / fl^2, times the width and times the base; k1, k2, k3; the running
-    # sum of the bases
-    h2o_line=_ABSORPTION_NEEDED["h2o_line"] + " vmul vmuls vmul*4 vmuls vadd",
-    h2o_sd_line=_ABSORPTION_CODED["h2o_sd_line"] + " " + _QSD_NODE_SETUP * 16,
-    # per (frequency, H2O line) on the grid alone: d1, d2, the cutoff tests,
-    # d1 d2; per half inside the cutoff: d^2
-    h2o_grid="fadd*2 cmp*2 fmul", h2o_grid_half="fmul",
-    # both halves inside the cutoff: q, the numerator, the denominator, the
-    # divide, the sum
-    h2o_both="vadds vmul vadd vmul vadd vdiv vadd",
-    # one half: d^2 + wsq, the divide, the sum
-    h2o_half="vadds vdiv vadd",
-    # the near half of a qSD line, per node: c_r^2 + d1^2, the divide, the sum
-    h2o_sd_half="vadds vdiv vadd " * 16,
-    # more per (point, O2 line): c = 2 (f0 + dnu), the strength over f0^2,
-    # its products with dfg and with y c, k1, k2, k3
-    o2_line=(_ABSORPTION_NEEDED["o2_line"]
-             + " vadds vmuls*2 vmul*7 vadd*2 vmuls"),
-    # 1 / f_line^2 per line of the table
-    line_grid="fmul fdiv",
-    # per (frequency, O2 line) on the grid alone: f - f0
-    o2_grid="fadd",
-    # per (point, frequency, O2 line): d1, d2, q, the numerator, the
-    # denominator
-    o2_rational="rsub vadd vmul vadd vmul vadd vmul vadd",
-    # per (point, frequency, two O2 lines): n_a D_b + n_b D_a, D_a D_b, the
-    # divide, the sum; the odd line out: the divide and the sum
-    o2_two="vmul*2 vadd vmul vdiv vadd", o2_one="vdiv vadd",
-    # more per (point, frequency): the bases' sum off the H2O lines, the O2
+    # liquid term and the sum; the bases' sum off the H2O lines, the O2
     # lines' sum times f^2
-    channel=_ABSORPTION_NEEDED["channel"] + " vadd vmul",
-)
+    "channel": ("vmul vmuls vadd "
+                "vmuls vadds vmul vdiv vadd vmul vmax0 "
+                "vmuls "
+                "vmuls*2 vmul*2 vadds*2 sdivv*2 vmul*2 vadd*2 vmul*2 vadd vneg "
+                "vadds vmul*2 vadd vdiv vmuls "
+                "vmuls*2 vadd*3 vadd vmul"),
+    # O3: per point, per line; per (frequency, O3 line) on the grid alone;
+    # per (point, frequency, line): A, B, A + B, width (A + B), A B, one
+    # divide, s res r^2, the sum; per (point, frequency)
+    "o3_point": "fmul*3 fdiv",
+    "o3_line": "fpow fmul*2 fmul fadd fmul fexp fmul*2",
+    "o3_grid": "fadd*2 fmul*4",
+    "o3_pair": "fadd*3 fmul*2 fdiv fmul*2 fadd",
+    "o3_channel": "fmul fadd",
+}
+
+def _lines(model, freqs, n_h2o_lines=None, n_o2_lines=None):
+    """The release's H2O line centres, which of them are qSD, the O2 line
+    count, and (F, lines) masks of the Lorentzian halves inside the Clough
+    cutoff at the frequencies `freqs` (|f -+ f_line| under the cutoff)."""
+    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
+    f = np.asarray(freqs, np.float64).reshape(-1)
+    fl = np.asarray(h2o.fl, np.float64)[:n_h2o_lines]
+    sd = ((np.asarray(h2o.w2) != 0) | (np.asarray(h2o.ws2) != 0))[:fl.size]
+    n_o2 = np.asarray(o2.f)[:n_o2_lines].size
+    near = np.abs(f[:, None] - fl[None, :]) < h2o.cutoff_ghz
+    far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
+    return fl, sd, n_o2, near, far
+
 
 # What K6's two passes execute (csrc/absorption_spectral.cu), on floats.
 _K6_TILE = 8    # frequencies per register tile (kFT)
@@ -555,14 +489,9 @@ def _k6_coded_ops(n_points, freqs, model, n_h2o_lines=None,
     `freqs`, taken in tiles of 8 consecutive frequencies as the kernel
     takes them: a non-qSD H2O line is merged where the whole tile lies
     inside the cutoff on both sides, and two O2 lines share a reciprocal."""
-    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
-    f = np.asarray(freqs, np.float64).reshape(-1)
-    fl = np.asarray(h2o.fl, np.float64)[:n_h2o_lines]
-    sd = ((np.asarray(h2o.w2) != 0) | (np.asarray(h2o.ws2) != 0))[:fl.size]
-    n_o2 = np.asarray(o2.f)[:n_o2_lines].size
-    nf, tiles = f.size, -(-f.size // _K6_TILE)
-    near = np.abs(f[:, None] - fl[None, :]) < h2o.cutoff_ghz     # (F, lines)
-    far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
+    fl, sd, n_o2, near, far = _lines(model, freqs, n_h2o_lines, n_o2_lines)
+    nf = near.shape[0]
+    tiles = -(-nf // _K6_TILE)
     tile_of = np.arange(nf) // _K6_TILE
     whole = np.ones((tiles, fl.size), bool)       # tiles wholly inside both
     np.logical_and.at(whole, tile_of, near & far)
@@ -570,7 +499,8 @@ def _k6_coded_ops(n_points, freqs, model, n_h2o_lines=None,
     nodes = 16
     per_point = {
         "point": 1, "h2o_line": fl.size,
-        "h2o_sd_line": fl.size * bool(h2o.has_sd), "o2_line": n_o2,
+        "h2o_sd_line": fl.size * bool(H2O_MODELS[model].has_sd),
+        "o2_line": n_o2,
         "tile": tiles, "tile_h2o_line": tiles * fl.size,
         "tile_o2_line": tiles * n_o2,
         "tile_h2o_both": (whole & ~sd[None, :]).sum(),
@@ -627,15 +557,9 @@ def _k1_coded_ops(n_points, freqs, model, with_o3=False, n_h2o_lines=None,
     """Operations of K1's body over `n_points` points at the channels
     `freqs`: a non-qSD H2O line is merged where every channel lies inside
     the cutoff on both sides, and two O2 lines share a reciprocal."""
-    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
-    f = np.asarray(freqs, np.float64).reshape(-1)
-    fl = np.asarray(h2o.fl, np.float64)[:n_h2o_lines]
-    sd = ((np.asarray(h2o.w2) != 0) | (np.asarray(h2o.ws2) != 0))[:fl.size]
-    n_o2 = np.asarray(o2.f)[:n_o2_lines].size
+    fl, sd, n_o2, near, far = _lines(model, freqs, n_h2o_lines, n_o2_lines)
     n_o3 = o3_lines.O3_FL.size if with_o3 else 0
-    nf = f.size
-    near = np.abs(f[:, None] - fl[None, :]) < h2o.cutoff_ghz     # (F, lines)
-    far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
+    nf = near.shape[0]
     merged = (near & far).all(axis=0) & ~sd                      # (lines,)
     apart = ~merged
     per_point = {
@@ -657,57 +581,226 @@ def _k1_coded_ops(n_points, freqs, model, with_o3=False, n_h2o_lines=None,
     return total
 
 
-def _absorption_ops(n_points, freqs, model, cost, with_o3=False,
-                    n_h2o_lines=None, n_o2_lines=None,
-                    as_coded=False) -> _Ops:
-    """Operations of the absorption function over `n_points` points and the
-    frequencies `freqs`, on floats or (`cost` = _DUAL) on K4's dual numbers
-    (as coded: of K4's body, which sets a point and its lines up once for
-    all channels and divides every Lorentzian half apart; K1's own body is
-    counted by `_k1_coded_ops`).  The Clough-cutoff
-    branches are counted for these frequencies:
-    a Lorentzian half is evaluated where |f -+ f_line| lies under the
-    release's cutoff."""
-    h2o, o2 = H2O_MODELS[model], O2_MODELS[model]
-    f = np.asarray(freqs, np.float64).reshape(-1)
-    fl = np.asarray(h2o.fl, np.float64)[:n_h2o_lines]
-    sd = ((np.asarray(h2o.w2) != 0) | (np.asarray(h2o.ws2) != 0))[:fl.size]
-    n_o2 = np.asarray(o2.f)[:n_o2_lines].size
+def _absorption_ops(n_points, freqs, model, with_o3=False, n_h2o_lines=None,
+                    n_o2_lines=None) -> _Ops:
+    """Operations the absorption function needs on floats over `n_points`
+    points and the frequencies `freqs` (K1's and K6's bound; their bodies
+    are counted by `_k1_coded_ops` and `_k6_coded_ops`).  The Clough-cutoff
+    branches are counted for these frequencies."""
+    fl, sd, n_o2, near, far = _lines(model, freqs, n_h2o_lines, n_o2_lines)
     n_o3 = o3_lines.O3_FL.size if with_o3 else 0
-    near = np.abs(f[:, None] - fl[None, :]) < h2o.cutoff_ghz     # (F, lines)
-    far = np.abs(f[:, None] + fl[None, :]) < h2o.cutoff_ghz
-    nf, n_sd = f.size, int(sd.sum())
+    nf = near.shape[0]
     fdep = model not in ("R98", "R03")      # the 1998 continuum has none
-    per_point = {"h2o_sd_half": near[:, sd].sum(), "channel": nf,
+    both = (near & far & ~sd).sum()
+    per_point = {"point": 1, "point_log": 1, "h2o_line": fl.size,
+                 "h2o_sd_line": int(sd.sum()), "o2_line": n_o2,
+                 "h2o_both": both,
+                 "h2o_half": near[:, ~sd].sum() + far.sum() - 2 * both,
+                 "h2o_sd_half": near[:, sd].sum(), "o2_rational": nf * n_o2,
+                 "o2_two": nf * (n_o2 // 2), "o2_one": nf * (n_o2 % 2),
+                 "channel": nf, "o3_point": with_o3, "o3_line": n_o3,
                  "o3_pair": nf * n_o3, "o3_channel": nf * with_o3}
-    halves = near[:, ~sd].sum() + far.sum()
-    if as_coded:
-        body, per_call = _ABSORPTION_CODED, {}
-        per_point.update(h2o_pair=nf * fl.size, h2o_half=halves,
-                         o2_pair=nf * n_o2, channel_fdep=nf * fdep)
-    else:
-        dual = cost is _DUAL
-        cost = _DUAL_NEEDED if dual else _FLOAT_NEEDED
-        per_point["point_log"] = 1
-        per_call = {"line_grid": fl.size + n_o2 + n_o3,
-                    "h2o_grid": nf * fl.size,
-                    "h2o_grid_half": near.sum() + far.sum(),
-                    "o2_grid": nf * n_o2, "o3_grid": nf * n_o3,
-                    "channel_grid": nf, "channel_fdep": nf * fdep}
-        if dual:
-            body = _ABSORPTION_NEEDED
-            per_point.update(h2o_pair=nf * fl.size, h2o_half=halves,
-                             o2_pair_apart=nf * n_o2)
-        else:
-            body = _ABSORPTION_NEEDED_FLOAT
-            both = (near & far & ~sd).sum()
-            per_point.update(h2o_both=both, h2o_half=halves - 2 * both,
-                             o2_rational=nf * n_o2,
-                             o2_two=nf * (n_o2 // 2), o2_one=nf * (n_o2 % 2))
-    per_point.update(point=1, h2o_line=fl.size, h2o_sd_line=n_sd,
-                     o2_line=n_o2, o3_point=with_o3, o3_line=n_o3)
+    per_call = {"line_grid": fl.size + n_o2 + n_o3, "h2o_grid": nf * fl.size,
+                "h2o_grid_half": near.sum() + far.sum(), "o2_grid": nf * n_o2,
+                "o3_grid": nf * n_o3, "channel_grid": nf,
+                "channel_fdep": nf * fdep}
+    body, cost = _ABSORPTION_NEEDED_FLOAT, _FLOAT_NEEDED
     total = _charge(body, cost, per_call)
     total.add_scaled(_charge(body, cost, per_point), n_points)
+    return total
+
+
+# ---- K4: absorption with its partials in T and rho -----------------------
+#
+# The value and both tangents of each quantity, counted on floats: what hangs
+# on T alone carries one tangent, a quantity linear in a line's width the
+# width's tangents by one derivative (csrc/absorption_tangents.cu has the
+# algebra).
+_POW = "fmul fexp fmul*2"         # ti^x from log2 ti, and its tangent
+_DMUL = "fmul*5 fadd*2"           # the product of two (v, d/dT, d/drho)
+_ADD_LINE = "fmul*5 fadd*5"       # sn (res, res_w w') into a channel's sum
+# What K4's body executes (csrc/absorption_tangents.cu): a thread per
+# (point, group of channels) forms the state of every line for its group
+# and spends it on the group's channels, one reciprocal per line shape.
+_K4_CODED = {
+    # per block, per line and per channel of its group: an H2O record's
+    # s1 / fl^2, c^2 and the tests that pick its form; an O2 record's
+    # s300 / f0^2, w300^2, 2 f0; 1 / f^2, the dry continuum's factor, the
+    # group's span
+    "block_h2o_line": "fmul*3 fdiv fadd*4 cmp*8",
+    "block_o2_line": "fmul*3 fdiv",
+    "block_channel": f"fmul fdiv {_FDEP} cmp*2",
+    # per (point, group): ti, -1 / T, dti/dT, th1, log2 ti, pvap, pda
+    "point": "fdiv fmul*2 fadd fexp fmul fdiv fmul*2 fadd",
+    # the O2 block's b, den, pe2, ybase
+    "o2_point": f"{_POW} fmul*4 fadd fmul*6 fadd*3 fmul*4 fadd fmul*5 "
+                "fmul*3 cmp*3",
+    # per (point, group, O2 line): df, dfsq, the strength, y, gfac, dfg,
+    # dnu, c, dfg_s, s y, y c, c^2, k1, k2, k3, the tangents of q and of
+    # the numerator's constant term, 2 q'
+    "o2_line": (f"fmul*3 fmul*3 fmul*4 fexp fmul*6 fadd*2 fmul*6 fadd*3 "
+                f"{_DMUL} fmul*6 fadd*2 fmul*3 fadd fmul*4 fadd fmul*4 fadd "
+                f"{_DMUL} fmul*5 {_DMUL} {_DMUL} {_DMUL} fmul*3 fadd*3 "
+                f"fmul*3 fadd*3 fmul*4 fadd*4 fmul*2"),
+    # per (point, group, channel, O2 line): d1, d1 + c, q, the numerator,
+    # the denominator, its reciprocal, the value, the two tangents
+    "o2_rational": ("fadd*3 fmul fadd fmul fadd fmul fadd fdiv fmul fadd "
+                    "fmul*8 fadd*8"),
+    # per (point, group): dfnr, 1 / ti, k_nr, dfnr^2, ti^3, o2s; N2's power
+    # and pda^2, n2k; the water continuum's two powers and con_b; the
+    # liquid term's theta1, eps0, eps1, 1 / fp, e01, e12, -0.06286 LWC
+    "tail": (f"fmul*3 fdiv fmul*7 fadd fmul*5 fmul*5 fmul*7 fadd {_POW} "
+             f"fmul*5 fmul*7 fadd {_POW} {_POW} fmul*12 fadd*5 {_DMUL} "
+             "fadd fmul fadd fmul fmul*2 fmul fexp fmul fdiv fmul*2 fadd*3 "
+             "fmul"),
+    # per (point, group, channel): f^2, the non-resonant term, the O2 term
+    # and its clamp, N2, u, v, 1 / (1 + u^2), 1 / (1 + v^2) and their
+    # tangents, re, im, aimag, the liquid term, the continuum, the sum
+    "tail_channel": ("fmul fadd fdiv fmul fmul*4 fadd*5 "
+                     f"{_DMUL} cmp*4 fmul*3 fadd*3 fmul*4 "
+                     "fmul fadd fdiv fmul fadd fdiv fmul*8 "
+                     "fmul*2 fadd*2 fmul*4 fadd*3 fmul*2 fmul*2 fadd "
+                     "fmul*8 fadd*5 fadd fmul*2 fadd fmul fdiv "
+                     "fmul*5 fadd*2 fdiv fmul*2 fmul*2 fadd*6"),
+    # per (point, group): cut^2, the H2O density scale, ti^2.5
+    "h2o_point": f"fmul*3 {_POW}",
+    # per (point, group, H2O line): tix, tixs, the width, w^2, the strength
+    # and its tangent, sn, Clough's base and its derivative, sn w', the test
+    "h2o_line": (f"{_POW} {_POW} fmul*4 fmul*8 fadd*5 fmul fadd fmul fexp "
+                 "fmul*2 fmul*3 fadd fmul*3 fadd fdiv fmul fmul*2 fadd "
+                 "fmul*2 cmp"),
+    # per (point, group, merged H2O line): c^2 w^2, 4 w^2, 2 w, the bases'
+    # sum
+    "h2o_merged_line": f"fmul*3 fmul*2 {_ADD_LINE}",
+    # per (point, group, channel, merged H2O line): d1, d2, q, c^2 + 2 q, the
+    # denominator, its reciprocal, the value, its derivative in w, the sum
+    "h2o_merged": ("fadd*2 fmul fadd fmul fadd fmul fadd fdiv fmul*2 "
+                   f"fmul fadd fmul fadd fmul {_ADD_LINE}"),
+    # per (point, group, channel, H2O line apart): d1, d2, the two tests,
+    # the sum; per half inside the cutoff: d^2 + w^2, its reciprocal, the
+    # shape minus the base, its derivative minus the base's (the near half
+    # also adds to the far one's)
+    "h2o_apart": f"fadd*2 cmp*2 {_ADD_LINE}",
+    "h2o_far": "fmul fadd fdiv fmul fadd fmul*2 fadd fadd",
+    "h2o_near": "fmul fadd fdiv fmul fadd*2 fmul*2 fadd fadd*2",
+    # per (point, group, qSD line): gamma2 and c0; per (point, group,
+    # channel, qSD line with its near half inside the cutoff): d1^2, the
+    # value and the tangents from P and Q, the sum; per node: c_r, its
+    # square plus d1^2, the reciprocal, the value, T', the three sums
+    "h2o_sd_line": "fmul*4 fmul*8 fadd*5 fmul*3 fadd*3",
+    "h2o_sd_near": "fmul fadd fmul*3 fadd*2 fmul*3 fadd*2 fmul*5 fadd*5",
+    "h2o_sd_node": "fmul fadd fmul fadd fdiv fmul fmul*2 fadd fmul fmul fadd "
+                   "fadd fmul fadd",
+    # per (point, channel) stored: f^2 (the sum - the merged bases)
+    "store": "fmul fadd*3 fmul*3",
+}
+# What the function needs with both tangents: each quantity once, on the
+# indices it depends on, in the cheapest form known (the body's, without
+# the state repeated per group): what depends on the table or the grid
+# alone once per call, a line's state once per point.  An O2 line is K1's
+# one rational on the body's dual algebra; two O2 lines may share a
+# reciprocal, which saves a divide for 11 more instructions of the fp32
+# pipe, so the function is charged the lesser in each resource, as for
+# Planck: the single line's fp32 count and one divide per two lines.
+_K4_NEEDED = {
+    "point": " ".join(_K4_CODED[k] for k in ("point", "o2_point", "tail",
+                                             "h2o_point")),
+    "o2_line": _K4_CODED["o2_line"],
+    "h2o_line": _K4_CODED["h2o_line"],
+    "h2o_merged_line": _K4_CODED["h2o_merged_line"],
+    # gamma2 and c0, and per node c_r and its square
+    "h2o_sd_line": _K4_CODED["h2o_sd_line"],
+    "h2o_sd_line_node": "fmul fadd fmul",
+    # per line of the table: the strength over f_line^2 and c^2 (H2O),
+    # w300^2 and 2 f0 (O2)
+    "line_h2o": "fmul fdiv fmul*2", "line_o2": "fmul*3 fdiv",
+    # on the grid alone: per (frequency, H2O line) d1, d2, the tests and
+    # d1 d2, per half inside the cutoff d^2; per (frequency, O2 line)
+    # f - f0; per frequency f^2, 1 / f^2 and the dry continuum's factor
+    "h2o_grid": "fadd*2 cmp*2 fmul", "h2o_grid_half": "fmul",
+    "o2_grid": "fadd", "channel_grid": f"fmul*2 fdiv {_FDEP}",
+    # per (point, frequency, merged H2O line): q, c^2 + 2 q, the
+    # denominator, its reciprocal, the value and its derivative, the sum
+    "h2o_merged": ("fadd fmul fadd fmul fadd fdiv fmul*2 fmul fadd fmul "
+                   f"fadd fmul {_ADD_LINE}"),
+    # per (point, frequency, H2O line apart): the sum; per half inside the
+    # cutoff: d^2 + w^2, the reciprocal, the shape minus the base, its
+    # derivative minus the base's
+    "h2o_apart": _ADD_LINE,
+    "h2o_half": "fadd fdiv fmul fadd fmul*2 fadd fadd",
+    # per (point, frequency, qSD near half inside the cutoff): the value and
+    # the tangents, the sum; per node: the denominator, the reciprocal, the
+    # value, T', the three sums
+    "h2o_sd_near": "fadd fmul*3 fadd*2 fmul*3 fadd*2 fmul*5 fadd*5",
+    "h2o_sd_node": "fadd fdiv fmul fmul*2 fadd fmul fmul fadd fadd fmul fadd",
+    # per (point, frequency, O2 line): d1, d1 + c, q, the numerator, the
+    # denominator, the value, the two tangents, without the divide; one
+    # divide per (point, frequency, two O2 lines) and for the odd line out
+    "o2_rational": "fadd*2 fmul fadd fmul fadd fmul fadd fmul fadd "
+                   "fmul*8 fadd*8",
+    "o2_two": "fdiv", "o2_one": "fdiv",
+    "tail_channel": _K4_CODED["tail_channel"],
+    "store": "fadd*3 fmul*3",
+}
+_K4_THREADS = absorption_mod.TANGENT_THREADS
+
+
+def _k4_ops(n_points, freqs, model, n_h2o_lines=None, n_o2_lines=None,
+            as_coded=False) -> _Ops:
+    """Operations of K4 over `n_points` points at the channels `freqs`: of
+    the function, or (`as_coded`) of the body, which takes the channels in
+    groups (`tangent_groups`), the last filled up with its last channel, and
+    forms every line's state per group; an H2O line is merged where all the
+    group's channels lie inside the cutoff on both sides."""
+    fl, sd, n_o2, near, far = _lines(model, freqs, n_h2o_lines, n_o2_lines)
+    nf = near.shape[0]
+    n_sd = int(sd.sum())
+    if not as_coded:
+        merged = near & far & ~sd
+        apart = ~merged
+        per_point = {"point": 1, "o2_line": n_o2, "h2o_line": fl.size,
+                     "h2o_merged_line": merged.any(axis=0).sum(),
+                     "h2o_sd_line": n_sd, "h2o_sd_line_node": 16 * n_sd,
+                     "h2o_merged": merged.sum(), "h2o_apart": apart.sum(),
+                     "h2o_half": (near & apart & ~sd).sum()
+                     + (far & apart).sum(),
+                     "h2o_sd_near": near[:, sd].sum(),
+                     "h2o_sd_node": 16 * near[:, sd].sum(),
+                     "o2_rational": nf * n_o2, "o2_two": nf * (n_o2 // 2),
+                     "o2_one": nf * (n_o2 % 2), "tail_channel": nf,
+                     "store": nf}
+        per_call = {"line_h2o": fl.size, "line_o2": n_o2,
+                    "h2o_grid": nf * fl.size,
+                    "h2o_grid_half": near.sum() + far.sum(),
+                    "o2_grid": nf * n_o2, "channel_grid": nf}
+        total = _charge(_K4_NEEDED, _FLOAT, per_call)
+        total.add_scaled(_charge(_K4_NEEDED, _FLOAT, per_point), n_points)
+        return total
+    groups, per = absorption_mod.tangent_groups(nf)
+    per_point = dict.fromkeys(_K4_CODED, 0)
+    for s0 in range(0, groups * per, per):
+        slots = np.minimum(np.arange(s0, s0 + per), nf - 1)
+        g_near, g_far = near[slots], far[slots]
+        merged = (g_near & g_far).all(axis=0) & ~sd             # (lines,)
+        apart = ~merged
+        counts = {
+            "block_h2o_line": fl.size / _K4_THREADS,
+            "block_o2_line": n_o2 / _K4_THREADS,
+            "block_channel": per / _K4_THREADS,
+            "point": 1, "o2_point": 1, "tail": 1, "h2o_point": 1,
+            "o2_line": n_o2, "o2_rational": per * n_o2,
+            "tail_channel": per, "h2o_line": fl.size,
+            "h2o_merged_line": merged.sum(),
+            "h2o_merged": per * merged.sum(), "h2o_apart": per * apart.sum(),
+            "h2o_far": g_far[:, apart].sum(),
+            "h2o_near": g_near[:, apart & ~sd].sum(),
+            "h2o_sd_line": n_sd, "h2o_sd_near": g_near[:, sd].sum(),
+            "h2o_sd_node": 16 * g_near[:, sd].sum(),
+            "store": min(per, nf - s0)}
+        for k, v in counts.items():
+            per_point[k] += v
+    total = _Ops()
+    total.add_scaled(_charge(_K4_CODED, _FLOAT, per_point), n_points)
     return total
 
 
@@ -731,8 +824,8 @@ def k1_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
     f = np.asarray(freqs, np.float64).reshape(-1)
     ops = (_k1_coded_ops(n_points, f, model, with_o3, n_h2o_lines,
                          n_o2_lines) if as_coded else
-           _absorption_ops(n_points, f, model, _FLOAT, with_o3,
-                           n_h2o_lines, n_o2_lines))
+           _absorption_ops(n_points, f, model, with_o3, n_h2o_lines,
+                           n_o2_lines))
     n_in = 5 if with_o3 else 4
     return ops.roofline(4.0 * n_points * (n_in + f.size) + 4 * f.size
                         + _table_bytes(model, with_o3, n_h2o_lines,
@@ -743,10 +836,10 @@ def k4_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
                 n_h2o_lines=None, n_o2_lines=None,
                 as_coded: bool = False) -> Roofline:
     """K4, `absorption_tangents_lb`: alpha, dalpha/dT and dalpha/drho
-    (F, n_points): K1's formulas carried on dual numbers (no O3)."""
+    (F, n_points), no O3.  Reads p, T, rho, LWC, the table and the
+    channels; writes the three outputs."""
     f = np.asarray(freqs, np.float64).reshape(-1)
-    ops = _absorption_ops(n_points, f, model, _DUAL, False,
-                          n_h2o_lines, n_o2_lines, as_coded)
+    ops = _k4_ops(n_points, f, model, n_h2o_lines, n_o2_lines, as_coded)
     return ops.roofline(4.0 * n_points * (4 + 3 * f.size) + 4 * f.size
                         + _table_bytes(model, False, n_h2o_lines, n_o2_lines))
 
@@ -761,8 +854,8 @@ def k6_roofline(n_points: int, freqs, model: str = "R24", n_h2o_lines=None,
     f = np.asarray(freqs, np.float64).reshape(-1)
     ops = (_k6_coded_ops(n_points, f, model, n_h2o_lines, n_o2_lines)
            if as_coded else
-           _absorption_ops(n_points, f, model, _FLOAT, False,
-                           n_h2o_lines, n_o2_lines))
+           _absorption_ops(n_points, f, model, False, n_h2o_lines,
+                           n_o2_lines))
     return ops.roofline(4.0 * n_points * (4 + f.size) + 4 * f.size
                         + _table_bytes(model, False, n_h2o_lines, n_o2_lines))
 

@@ -322,3 +322,90 @@ def test_merged_arithmetic_under_the_cutoff_tests(levels96, freqs):
         want = k1.absorption_lb_float64(freqs, *args, model)
         assert got.shape == (len(freqs), 96, 4)
         assert _share_of_max(got, want) <= 5e-6, model
+
+
+# ---- K4's arithmetic: channel groups, the tangents by the body's formulas --
+
+LEVEL_ARGS = ("p", "t", "rho", "lwc")
+
+
+@pytest.mark.parametrize("model", ["R98", "R24", "R20SD"])
+def test_grouped_tangents_match_jax_jvp(levels96, model):
+    """K4's order of operations in float32 (two groups of 7 channels, the
+    tangents from the body's own formulas) against jax.jvp of the JAX
+    package's XLA absorption in float64 on the same float32 inputs: alpha to
+    1e-4 and each tangent to 1e-3 of its channel's largest value, the gates
+    of the kernel on the card."""
+    lev = {k: v.numpy().astype(np.float64) for k, v in levels96.items()}
+    with jax.enable_x64(True):
+        alpha, da_t = _jax_partial(model, "t", lev, FREQS)
+        _, da_rho = _jax_partial(model, "rho", lev, FREQS)
+    got = mirrors.absorption_tangents_grouped(
+        FREQS, *(levels96[k] for k in LEVEL_ARGS), model)
+    for g, want, bound in zip(got, (alpha, da_t, da_rho), (1e-4, 1e-3, 1e-3)):
+        assert g.dtype == torch.float32 and g.shape == want.shape
+        assert _share_of_max(g, torch.from_numpy(want)) <= bound
+
+
+@pytest.mark.parametrize("model", ZENITH_SWEEP_MODELS)
+def test_grouped_tangents_hold_float64(levels96, model):
+    """The same in float32 against the plain function's jvp in float64 on
+    the kernel's float32 tables: alpha to 5e-6 and each tangent to 1e-5 of
+    its channel's largest value.  In float64 it is the function, to
+    rounding: the algebra of the merged rationals and of their tangents is
+    exact."""
+    args = [levels96[k] for k in LEVEL_ARGS]
+    got = mirrors.absorption_tangents_grouped(FREQS, *args, model)
+    want = k1.absorption_tangents_lb_float64(FREQS, *args, model)
+    for g, w, bound in zip(got, want, (5e-6, 1e-5, 1e-5)):
+        assert g.dtype == torch.float32 and w.dtype == torch.float64
+        assert g.shape == w.shape == (len(FREQS), 96, 4)
+        assert _share_of_max(g, w) <= bound
+    args64 = [a.double() for a in args]
+    exact = mirrors.absorption_tangents_grouped(FREQS, *args64, model)
+    plain = k1.absorption_tangents_lb_reference(FREQS, *args64, model)
+    for g, w in zip(exact, plain):
+        assert _share_of_max(g, w) <= 1e-12
+
+
+@pytest.mark.parametrize("freqs", [(22.24,), (22.24, 900.0), (183.31, 760.0)],
+                         ids=["one", "span_leaves_cutoff", "submm"])
+def test_grouped_tangents_under_the_cutoff_tests(levels96, freqs):
+    """A line is merged only where every channel of the group lies inside
+    the cutoff on both sides; a group that straddles a line's cutoff takes
+    the halves apart.  Either way float64 on the float32 tables is met to
+    5e-6 (alpha) and 1e-5 (tangents), and for the qSD release too."""
+    args = [levels96[k] for k in LEVEL_ARGS]
+    for model in ("R24", "R20SD"):
+        got = mirrors.absorption_tangents_grouped(freqs, *args, model)
+        want = k1.absorption_tangents_lb_float64(freqs, *args, model)
+        for g, w, bound in zip(got, want, (5e-6, 1e-5, 1e-5)):
+            assert g.shape == (len(freqs), 96, 4)
+            assert _share_of_max(g, w) <= bound, model
+
+
+@pytest.mark.parametrize("group", [2, 3])
+def test_one_group_and_a_split_give_the_same_sums(levels96, group):
+    """Four channels as one group or in groups of 2 or 3 (the last filled
+    up with its last channel): the group decides only which lines take the
+    merged form, so the sums agree to rounding in float64 and to 5e-6 of
+    each channel's largest value in float32."""
+    freqs = (22.24, 23.04, 183.31, 900.0)
+    for dtype, bound in ((torch.float64, 1e-12), (torch.float32, 5e-6)):
+        args = [levels96[k].to(dtype) for k in LEVEL_ARGS]
+        one = mirrors.absorption_tangents_grouped(freqs, *args, "R24", group=4)
+        split = mirrors.absorption_tangents_grouped(freqs, *args, "R24",
+                                                    group=group)
+        for a, b in zip(one, split):
+            assert a.shape == b.shape == (4, 96, 4)
+            assert _share_of_max(b, a) <= bound, dtype
+
+
+@pytest.mark.parametrize("n_channels,want", [(1, (1, 1)), (8, (1, 8)),
+                                             (9, (2, 5)), (14, (2, 7)),
+                                             (16, (2, 8))])
+def test_tangent_groups_are_at_most_eight_and_even(n_channels, want):
+    assert k1.tangent_groups(n_channels) == want
+    # the K-matrix shape, 256 profiles x 180 levels at 14 channels: 720
+    # blocks of 128 points
+    assert k1.tangent_blocks(256 * 180, n_channels) == 360 * want[0]

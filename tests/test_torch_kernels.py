@@ -299,19 +299,26 @@ def k_error(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", sorted(H2O_MODELS))
-def test_tangent_kernel_matches_plain(device, model):
+@pytest.mark.parametrize("model,n_channels", [
+    *((m, len(FREQS)) for m in sorted(H2O_MODELS)), ("R24", 16), ("R24", 1),
+    ("R20SD", 9)])
+def test_tangent_kernel_matches_plain(device, model, n_channels):
     """K4 against two jvp passes of the plain absorption: alpha to 1e-4 and
-    each tangent to 1e-3 of its channel's largest value."""
+    each tangent to 1e-3 of its channel's largest value.  The HATPRO
+    channels are two groups of 7; 16 channels two full groups of 8, one
+    channel a group of one, 9 channels groups of 5 and 4 (one slot of
+    padding)."""
     prof = _levels(67, 180, device)
-    args = (FREQS, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
+    freqs = (FREQS if n_channels == len(FREQS) else
+             tuple(torch.linspace(22.24, 58.0, n_channels).tolist()))
+    args = (freqs, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
     before = absorption_tangents_lb.launches
     got = absorption_tangents_lb(*args)
     assert absorption_tangents_lb.launches == before + 1
     want = absorption_tangents_lb_reference(*args)
     torch.cuda.synchronize()
     for g, w, bound in zip(got, want, (1e-4, 1e-3, 1e-3)):
-        assert g.shape == (len(FREQS), 180, 67) and g.is_contiguous()
+        assert g.shape == (n_channels, 180, 67) and g.is_contiguous()
         err = (g - w).abs().amax(dim=(1, 2))
         scale = w.abs().amax(dim=(1, 2))
         assert bool((err <= bound * scale).all()), (err / scale).max()

@@ -259,7 +259,7 @@ def test_each_quantity_is_charged_on_the_indices_it_depends_on():
 def test_float_lines_are_one_rational_and_two_o2_lines_share_a_divide():
     """Per (point, frequency) the function on floats needs one divide per
     two O2 lines, one per H2O line that has a half inside the cutoff and
-    four in the tail; on dual numbers the halves stay apart."""
+    four in the tail; with both tangents (K4) the same per line."""
     f, n = np.linspace(51.0, 54.0, 16), 1000
     fl, cut = H2O_MODELS["R24"].fl, H2O_MODELS["R24"].cutoff_ghz
     near = np.abs(f[:8, None] - fl) < cut
@@ -276,9 +276,10 @@ def test_float_lines_are_one_rational_and_two_o2_lines_share_a_divide():
     want = 8 * (-(-n_o2 // 2) + 4) + (near | far).sum()
     assert per_frequency(P.k6_roofline, "div_ops") == pytest.approx(want)
     assert per_frequency(P.k1_roofline, "div_ops") == pytest.approx(want)
-    # K4: two dual divides per O2 line, one per half, and the tail's
-    apart = per_frequency(P.k4_roofline, "div_ops")
-    assert apart >= 8 * 2 * n_o2 + near.sum() + far.sum()
+    # K4 carries both tangents through the same rationals: the same divides
+    # per line, and five in the tail (aimag's quotient rule is the fifth)
+    want_k4 = 8 * (-(-n_o2 // 2) + 5) + (near | far).sum()
+    assert per_frequency(P.k4_roofline, "div_ops") == pytest.approx(want_k4)
     # the body pays an add more per O2 line and a multiply more per pair
     coded = per_frequency(lambda *a: P.k6_roofline(*a, as_coded=True),
                           "fma_ops")
@@ -288,11 +289,11 @@ def test_float_lines_are_one_rational_and_two_o2_lines_share_a_divide():
 
 def test_new_bodies_are_counted_as_they_are_coded():
     """K1's body pays one reciprocal per two O2 lines and per merged H2O
-    line, where the body it replaced (K4 still has it, on dual numbers)
-    divided every half; K2's staged body forms the chord once per block of
-    up to 16 channels, takes no exponential for Planck where the series
-    serves, and pays a reciprocal per layer for computing both forms of the
-    emission factors, on any batch."""
+    line; K4's pays one per O2 line and per merged H2O line in each of its
+    two groups of 7 channels; K2's staged body forms the chord once per
+    block of up to 16 channels, takes no exponential for Planck where the
+    series serves, and pays a reciprocal per layer for computing both forms
+    of the emission factors, on any batch."""
     n, f = 1000, np.asarray(P._HATPRO)
     k1 = P.k1_roofline(n, as_coded=True)
     n_o2, n_h2o = O2_MODELS["R24"].f.size, H2O_MODELS["R24"].fl.size
@@ -308,8 +309,20 @@ def test_new_bodies_are_counted_as_they_are_coded():
     per_point = f.size * (-(-n_o2 // 2) + 4) + lines + n_h2o + 4
     assert k1.div_ops / n == pytest.approx(
         per_point + (n_h2o + n_o2 + 2 * f.size) / 128)
-    halves = P.k4_roofline(n, as_coded=True)
-    assert halves.div_ops > 2.5 * k1.div_ops / 3    # K4: 3 floats a divide
+    # K4, per group and point: per channel a reciprocal per O2 line and per
+    # merged H2O line, five IEEE divides in the tail; a reciprocal per half
+    # of the lines apart; 300 / T, / 217, 1 / ti, 1 / fp and a base per H2O
+    # line; the block's share of the records' and the channels' divides
+    k4 = P.k4_roofline(n, as_coded=True)
+    want = 0
+    for group in (f[:7], f[7:]):
+        g_near = np.abs(group[:, None] - fl) < cut
+        g_far = np.abs(group[:, None] + fl) < cut
+        both = (g_near & g_far).all(axis=0)
+        want += (group.size * (n_o2 + both.sum() + 5) + g_near[:, ~both].sum()
+                 + g_far[:, ~both].sum() + 4 + n_h2o
+                 + (n_h2o + n_o2 + 3 * group.size) / 128)
+    assert k4.div_ops / n == pytest.approx(want)
     B, L, F, E = 64, 180, 14, 10
     staged = P.k2_roofline(B, L, F, E, planck_series_fraction=1.0,
                            as_coded=True)
@@ -374,6 +387,20 @@ def test_dual_numbers_cost_more_than_floats():
     assert k4.hbm_bytes > k1.hbm_bytes
 
 
+@pytest.mark.parametrize("n_channels,groups", [(8, 1), (14, 2), (16, 2)])
+def test_k4_body_forms_the_line_state_once_per_group(n_channels, groups):
+    """K4's body takes the channels in groups of at most 8 and forms every
+    line's state in each: as many exponentials a point as the function
+    (which forms it once) times the groups; the function's fp32 count stays
+    under the body's, whose group of 7 spends the O2 state on 7 channels."""
+    f = np.linspace(22.0, 58.0, n_channels)
+    need = profiling.k4_roofline(1000, f)
+    body = profiling.k4_roofline(1000, f, as_coded=True)
+    assert body.exp_ops == groups * need.exp_ops
+    assert need.fma_ops < body.fma_ops and need.div_ops < body.div_ops
+    assert body.hbm_bytes == need.hbm_bytes
+
+
 def test_clough_cutoff_is_counted_for_the_frequencies_given():
     # at 900 GHz other line halves lie inside the 750 GHz cutoff than at 22
     low = profiling.k1_roofline(1000, (22.24,))
@@ -382,11 +409,16 @@ def test_clough_cutoff_is_counted_for_the_frequencies_given():
     # K1's body merges a line's two halves where both lie inside (one divide
     # where the halves apart took two), so at these two frequencies its
     # divides happen to agree and its fp32 instructions show the branches;
-    # K4's body divides every half
-    assert (profiling.k1_roofline(1000, (22.24,), as_coded=True).fma_ops
-            != profiling.k1_roofline(1000, (900.0,), as_coded=True).fma_ops)
-    assert (profiling.k4_roofline(1000, (22.24,), as_coded=True).div_ops
-            != profiling.k4_roofline(1000, (900.0,), as_coded=True).div_ops)
+    # so do K4's, whose group of one channel merges where K1 does
+    for make in (profiling.k1_roofline, profiling.k4_roofline):
+        low, high = (make(1000, (f,), as_coded=True) for f in (22.24, 900.0))
+        assert low.div_ops == high.div_ops and low.fma_ops != high.fma_ops
+    # a group that straddles the cutoff of 13 lines takes them apart: 27
+    # halves at 22.24 GHz and 14 at 900 where two close channels pay 26
+    # merged rationals and 2 halves, 13 reciprocals less a point
+    close, pair = (profiling.k4_roofline(1000, f, as_coded=True)
+                   for f in ((22.24, 23.04), (22.24, 900.0)))
+    assert pair.div_ops - close.div_ops == pytest.approx(1000 * 13)
     # the qSD releases evaluate 16 quadrature nodes per near half
     assert (profiling.k1_roofline(1000, model="R20SD").div_ops
             > profiling.k1_roofline(1000, model="R20").div_ops)
