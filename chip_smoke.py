@@ -6,7 +6,7 @@ kernels' bounds, fast operator and retrieval on one GPU and check them.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's kernels from `csrc/` and goes through
-twenty phases, each printing its own lines:
+twenty-one phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions, the
      kernel build time, each kernel instantiation's registers and spills
@@ -89,7 +89,20 @@ twenty phases, each printing its own lines:
  19. CUDA-event times of fast serving, one distillation step, the fast K
      and the retrieval, with peak device memory, and a `torch.profiler`
      trace of fast serving, of the retrieval and of the K-matrix: device
-     time by kernel and the device's idle share.
+     time by kernel and the device's idle share;
+ 20. the campaign forward stage, `pipeline.forward_stage`: (a) a synthetic
+     campaign (3 sondes, one instrument's L1/L2 files) through
+     `preprocess_files`, a NetCDF round trip, `distill_on_dataset` and the
+     stage with all four releases, the fast operator and the K-matrix, its
+     shapes and physics, NaN screening and `merge.analysis_dataset`; (b)
+     the stage at 1000 times x 2 crops x 180 levels (bench.py's stage
+     shape, from `demo_batch`), batch_size=256, with the launch counts of
+     K1, K2, K4 and K5, each output against the entry point called directly
+     on the same profiles, batch_size=100 against 256, the TBs against the
+     plain path; its wall (median of 3), the split into screening, upload,
+     device and pull, device time and idle share from a profiler trace,
+     spectra/s against phase 4's `forward_batch`, the R24-only stage, the
+     fp16 upload on and off, peak device memory and the host outputs' size.
 
 It then prints one JSON line of per-kernel results and, last, one JSON line
 naming the device.  Any failed check raises, and the exit code is not 0.
@@ -116,6 +129,8 @@ BK = 256                # the K-matrix batch of bench.py (BASELINE config 4)
 WRT = ("t", "rho", "lwc")
 REPEATS = 20
 BS, NF_SPEC, CHUNK = 32, 50_000, 8192   # the spectral shape of bench.py
+N_STAGE_TIME = 1000     # the forward-stage shape of bench.py: x 2 crops
+STAGE_MODELS = ("R98", "R17", "R20", "R24")
 
 
 def check(cond, msg):
@@ -223,6 +238,330 @@ def ptxas_report(log: str):
                  .removeprefix("void ") for n in names]
     return [(s_, name, f"{e['regs']} registers, {e['spill']}")
             for ((s_, _), e), name in zip(entries.items(), names)]
+
+
+def stage_dataset(n_time):
+    """A harmonized dataset of `n_time` times x 2 identical crops x L
+    levels from `demo_batch`, as bench.py builds its forward-stage input."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.data.dataset import (
+        Dataset, Variable)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import lbl
+
+    profs = {k: v.numpy().astype(np.float64)
+             for k, v in lbl.demo_batch(n_time, L, device="cpu").items()}
+    p, t, rho = profs["p"], profs["t"], profs["rho"]
+    e = rho * t / 216.679
+    mr = 1000.0 * 0.622 * e / np.maximum(p - e, 1e-3)
+    liq = profs["lwc"] / 1000.0 / (p * 100.0 / (287.04 * t))
+    ds = Dataset()
+    for name, x in (("Level_Pressure", p), ("Level_Temperature", t),
+                    ("Level_H2O", mr), ("Level_z", profs["z"]),
+                    ("Level_Liquid", liq)):
+        # (B, L) ground -> top  ->  (N_Levels top -> ground, time, Crop)
+        lev = np.repeat(x.T[::-1, :, None], 2, axis=2).astype("f4")
+        ds[name] = Variable(("N_Levels", "time", "Crop"), lev)
+    return ds
+
+
+def stage_outputs(ds):
+    """{name: array} of the stage's output variables in `ds`."""
+    return {k: v.data for k, v in ds.variables.items()
+            if k.startswith(("TBs_LBL_", "TBs_Fast", "ttrans_", "levtrans_",
+                             "Jacobian_"))}
+
+
+def stage_tolerance(name, want):
+    """What two runs of the stage that differ only in how they batch may
+    differ by: 1e-5 K on TBs, 1e-6 on transmittances, 1e-5 max |K| on the
+    K-matrices."""
+    if name.startswith("Jacobian_"):
+        return 1e-5 * float(np.nanmax(np.abs(want)))
+    return 1e-5 if name.startswith("TBs_") else 1e-6
+
+
+def same_data(a, b):
+    """Equal arrays, NaN where NaN; a string variable `a` against the
+    character array NetCDF classic reads back."""
+    if a.dtype.kind == "U":
+        b = np.array([row.tobytes().decode().rstrip("\x00") for row in b])
+    nan = a.dtype.kind in "fc"
+    return a.shape == b.shape and np.array_equal(a, b, equal_nan=nan)
+
+
+def stage_campaign(root):
+    """Phase 20 (a): a synthetic campaign through the data layer, the
+    distillation, the stage and the merge."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.data import (
+        netcdf, preprocess, synthetic)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import fast
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.pipeline import (
+        forward_stage, merge)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    sondes, mwr_files = [], {"joyhat": []}
+    for i, stamp in enumerate(("20240805_102936", "20240806_102936",
+                               "20240807_102936")):
+        sondes.append(synthetic.write_sonde_nc_arms(
+            str(root / f"{stamp}.nc"), seed=i))
+        launch = np.datetime64(f"2024-08-0{5 + i}T10:29:36")
+        mwr_files["joyhat"].append(synthetic.write_mwr_l1(
+            str(root / f"mwr_l1_{i}.nc"), launch, seed=10 + i))
+        for j, prod in enumerate(("ta", "hua", "prw", "clwvi")):
+            mwr_files["joyhat"].append(synthetic.write_mwr_l2(
+                str(root / f"mwr0_l2_{prod}_{i}.nc"), launch, prod,
+                seed=20 + 10 * j + i))
+    ds = preprocess.preprocess_files(sondes, "Vital", "Juelich", mwr_files)
+    path = str(root / "harmonized.nc")
+    netcdf.write(path, ds)
+    back = netcdf.read(path)
+    check(set(back.variables) == set(ds.variables) and all(
+        same_data(v.data, back[k].data) for k, v in ds.variables.items()),
+        "NetCDF round trip")
+    ds = back
+    params = fast.distill_on_dataset(ds)
+    check(params["w"].is_cuda and bool(torch.isfinite(params["w"]).all()),
+          "distill_on_dataset on the card")
+    out = forward_stage(ds.copy(), STAGE_MODELS, params, with_jacobians=True)
+    nt = ds.dims["time"]
+    shapes = {"TBs_LBL_R24": (nt, 14, 10, 2), "TBs_Fast": (nt, 14, 10, 2),
+              "ttrans_Fast": (nt, 14, 10, 2),
+              "levtrans_Fast": (nt, 14, L, 10, 2),
+              "Jacobian_T_LBL": (nt, 14, 10, L, 2)}
+    outs = stage_outputs(out)
+    check(len(outs) == len(STAGE_MODELS) + 6, f"outputs {sorted(outs)}")
+    check(all(outs[k].shape == v for k, v in shapes.items()),
+          f"stage shapes {[(k, outs[k].shape) for k in shapes]}")
+    check(all(np.isfinite(v).all() for v in outs.values()),
+          "stage outputs not finite")
+    # the physics checks of tests/test_pipeline.py; K_T of the opaque
+    # 58 GHz channel is positive at the lowest level and zero at the top
+    tb = outs["TBs_LBL_R24"]
+    tt = outs["ttrans_Fast"]
+    k_t = outs["Jacobian_T_LBL"]
+    fast_dev = float(np.abs(outs["TBs_Fast"] - tb).max())
+    check(bool(np.all(tb[:, 0, -1, 0] > tb[:, 0, 0, 0])), "K-band TB order")
+    check(bool(np.all(tt[:, 0, -1, 0] <= tt[:, 0, 0, 0] + 1e-6)),
+          "transmittance order")
+    check(fast_dev < 0.3, f"fast vs LBL {fast_dev} K")
+    check(bool(np.all(k_t[:, 13, 0, 0, :] > 0))
+          and np.abs(k_t[:, 13, 0, -1, :]).max() <= 1e-6 * np.abs(k_t).max(),
+          "K_T at 58 GHz")
+    killed = ds.copy()
+    killed["Level_Temperature"].data[:, 0, :] = np.nan
+    tb_k = forward_stage(killed, ("R24",))["TBs_LBL_R24"].data
+    check(np.isnan(tb_k[0]).all() and np.isfinite(tb_k[1:]).all(),
+          "NaN screening")
+    ana = merge.analysis_dataset(out.copy(), compat=True)
+    check("cloud_flag" in ana and "Deviations_Fast_R24" in ana
+          and "TBs_PyRTlib_R24" in ana, "analysis_dataset")
+    print(f"phase 20: campaign of 3 sondes + joyhat L1/L2: harmonized "
+          f"{dict(ds.dims)}, NetCDF round trip equal; distill_on_dataset w "
+          f"{tuple(params['w'].shape)} on {params['w'].device}; stage with "
+          f"{STAGE_MODELS}, fast, K: {len(outs)} outputs, finite, physics "
+          f"checks hold (max|fast - LBL R24| {fast_dev:.4f} K); profile 0 "
+          f"killed -> NaN; analysis_dataset {len(ana.variables)} variables; "
+          f"native ncio library loaded: {native.available()}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def forward_stage_phase(dev, fb_rate, counted):
+    """Phase 20: the campaign forward stage.  Returns the launches of each
+    kernel wrapper in `counted` ({name: wrapper}) during one stage call at
+    bench.py's shape."""
+    import tempfile
+
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.data import preprocess
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+        fast, jacobians, lbl)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
+        path_times)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.pipeline import (
+        forward as fwd)
+
+    scratch = ROOT / "build" / "torch_kernels"
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        stage_campaign(pathlib.Path(tmp))
+
+    # (b) bench.py's stage: 1000 times x 2 crops x 180 levels
+    n = N_STAGE_TIME
+    ds = stage_dataset(n)
+    counted["absorption_lb"].launches = 0
+    params = fast.distill_on_dataset(ds, crop=0)
+    fit_k1 = counted["absorption_lb"].launches
+
+    def stage(models=STAGE_MODELS, with_fast=True, with_jacobians=True,
+              **kw):
+        return fwd.forward_stage(ds.copy(), models,
+                                 params if with_fast else None,
+                                 with_jacobians=with_jacobians, **kw)
+
+    stage()                                   # warm-up
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    out = stage_outputs(stage())
+    launches = {name: fn.launches for name, fn in counted.items()}
+    chunks = 2 * -(-n // 256)
+    want = {"absorption_lb": len(STAGE_MODELS) * chunks,
+            "forward_lb": (len(STAGE_MODELS) + 1) * chunks,
+            "absorption_tangents_lb": chunks, "kmatrix_assembled_lb": chunks,
+            "kmatrix_assembled_rho_lwc_lb": chunks, "absorption_spectral": 0,
+            "downwelling_lb": 0, "chain": 0}
+    print(f"phase 20: launches during forward_stage ({n} times x 2 crops, "
+          f"batch_size=256: {chunks} chunks, {STAGE_MODELS}, fast, K): "
+          f"{launches}; K1 during distill_on_dataset {fit_k1}")
+    check(launches == want, f"stage launches {launches}, want {want}")
+    check(fit_k1 == 1, f"distill_on_dataset K1 launches {fit_k1}")
+    check(all(np.isfinite(v).all() for v in out.values()),
+          "stage outputs not finite")
+
+    # each output against the entry point called directly on all n
+    # profiles of the crop
+    direct_err = {}
+    kcfg = lbl.LBLConfig(model=STAGE_MODELS[-1])
+    fcfg = fast.FastConfig(outputs=("tb", "tau_total", "trans_level"))
+    for crop in (0, 1):
+        prof = {k: torch.from_numpy(v).to(dev) for k, v in
+                preprocess.profiles_for_forward(ds, crop=crop).items()}
+        direct = {f"TBs_LBL_{m}": lbl.forward_batch(
+            prof, lbl.LBLConfig(model=m, outputs=("tb",)))["tb"].permute(
+                0, 2, 1) for m in STAGE_MODELS}
+        res = fast.fast_forward_batch(params, prof, fcfg)
+        direct["TBs_Fast"] = res["tb"].permute(0, 2, 1)
+        direct["ttrans_Fast"] = torch.exp(-res["tau_total"]).permute(0, 2, 1)
+        direct["levtrans_Fast"] = res["trans_level"].permute(0, 2, 3, 1)
+        k = jacobians.kmatrix_batch_fast(prof, kcfg, wrt=WRT)
+        for name, tag in (("t", "T"), ("rho", "rho"), ("lwc", "liq")):
+            direct[f"Jacobian_{tag}_LBL"] = k[name].permute(0, 2, 1, 3)
+        for name, v in direct.items():
+            err = float(np.abs(out[name][..., crop] - v.cpu().numpy()).max())
+            direct_err[name] = max(direct_err.get(name, 0.0), err)
+        del prof, direct, res, k
+    print("phase 20: max|stage - entry point called directly on the crop's "
+          f"{n} profiles|: " + "; ".join(f"{k} {v:.3e}"
+                                         for k, v in direct_err.items()))
+    check(all(v <= stage_tolerance(k, out[k]) for k, v in direct_err.items()),
+          f"stage vs direct calls {direct_err}")
+
+    out100 = stage_outputs(stage(batch_size=100))
+    bs_err = {k: float(np.abs(out100[k] - v).max()) for k, v in out.items()}
+    del out100
+    print("phase 20: max|batch_size=100 - batch_size=256|: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in bs_err.items()))
+    check(all(v <= stage_tolerance(k, out[k]) for k, v in bs_err.items()),
+          f"batch_size dependence {bs_err}")
+    plain = stage_outputs(stage(with_jacobians=False, fused=False))
+    plain_err = {k: float(np.abs(plain[k] - out[k]).max())
+                 for k in plain if k.startswith("TBs_")}
+    del plain
+    print("phase 20: max|kernels - plain path (fused=False) on the card|: "
+          + "; ".join(f"{k} {v:.3e} K" for k, v in plain_err.items())
+          + " (bound 1e-2)")
+    check(max(plain_err.values()) <= 1e-2, f"stage vs plain {plain_err}")
+
+    # times
+    def wall_s(fn, repeats=3):
+        fn()
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    wall = wall_s(stage)
+    t0 = time.perf_counter()
+    screened = [fwd._screen(preprocess.profiles_for_forward(ds, crop=c))
+                for c in (0, 1)]
+    t_screen = time.perf_counter() - t0
+    t_upload = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ups = [fwd._upload(p, False, dev) for p, _ in screened]
+        torch.cuda.synchronize()
+        t_upload.append(time.perf_counter() - t0)
+    t_upload = statistics.median(t_upload)
+    tables = fwd._stage_tables(STAGE_MODELS, True, dev)
+    res = fwd._allocate(n, L, STAGE_MODELS, True, True, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for crop, (p, r) in enumerate(ups):
+        fwd._stage_device(p, r, params, STAGE_MODELS, True, 256, tables,
+                          res, crop)
+    torch.cuda.synchronize()
+    t_device = time.perf_counter() - t0
+    t_pull = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fwd._pull(res)
+        t_pull.append(time.perf_counter() - t0)
+    t_pull = statistics.median(t_pull)
+    # the device-to-host part alone: the same bytes into pinned buffers made
+    # beforehand; and the same bytes straight into pageable memory
+    pinned = [(torch.empty(v.shape, pin_memory=True), v)
+              for v in fwd._leaves(res)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h, v in pinned:
+        h.copy_(v, non_blocking=True)
+    torch.cuda.synchronize()
+    t_pull_pinned = time.perf_counter() - t0
+    del pinned
+    t0 = time.perf_counter()
+    for v in fwd._leaves(res):
+        v.cpu()
+    t_pull_pageable = time.perf_counter() - t0
+    del res, ups
+    device_ms, n_kernels, top = path_times.device_profile(stage, 1, 4)
+    peak = peak_mib(stage)
+    host_bytes = {k: v.nbytes for k, v in out.items()}
+    spectra = n * 2 * len(lbl.LBLConfig().elevations_deg)
+    rate = spectra * len(STAGE_MODELS) / wall
+    print(f"phase 20: forward_stage {n} x 2 crops x {L} levels, "
+          f"{STAGE_MODELS}, fast, K, batch_size=256: wall {wall * 1e3:.1f} "
+          f"ms (median of 3) = {rate:.6g} spectra/s, "
+          f"{rate / fb_rate:.4f} of phase 4's forward_batch rate "
+          f"({fb_rate:.6g} spectra/s); alone: host screening "
+          f"{t_screen * 1e3:.1f} ms, upload {t_upload * 1e3:.1f} ms "
+          f"({t_upload / wall:.4f} of the wall), device work (enqueue to "
+          f"synchronise) {t_device * 1e3:.1f} ms, pull {t_pull * 1e3:.1f} ms "
+          f"(of the same bytes: {t_pull_pinned * 1e3:.1f} ms into pinned "
+          f"buffers made beforehand, {t_pull_pageable * 1e3:.1f} ms straight "
+          f"into pageable memory), the rest "
+          f"{(wall - t_screen - t_upload - t_device - t_pull) * 1e3:.1f} ms")
+    if device_ms == 0.0:
+        print("phase 20: the profiler saw no device time: idle share not "
+              "measured")
+    else:
+        print(f"phase 20: forward_stage profiler over 1 call: "
+              f"{round(n_kernels)} device kernels and copies, device time "
+              f"{device_ms:.1f} ms against the wall {wall * 1e3:.1f} ms: the "
+              f"device idles {max(0.0, 1.0 - device_ms / (wall * 1e3)):.3f} "
+              f"of the call; most of it: " + "; ".join(
+                  f"{name} {t:.2f} ms x{c:g}" for name, c, t in top))
+    print(f"phase 20: forward_stage peak device memory {peak:.1f} MiB above "
+          f"the live tensors; host outputs "
+          f"{sum(host_bytes.values()) / 1e9:.3f} GB (Jacobians "
+          f"{sum(v for k, v in host_bytes.items() if 'Jacobian' in k) / 1e9:.3f}"
+          f" GB, levtrans {host_bytes['levtrans_Fast'] / 1e9:.3f} GB)")
+
+    walls_r24 = {c: wall_s(lambda c=c: stage(("R24",), False, False,
+                                             compress_upload=c))
+                 for c in (False, True)}
+    tb_plain = stage(("R24",), False, False)["TBs_LBL_R24"].data
+    tb_comp = stage(("R24",), False, False,
+                    compress_upload=True)["TBs_LBL_R24"].data
+    comp_err = float(np.abs(tb_plain - tb_comp).max())
+    rate_r24 = spectra / walls_r24[False]
+    print(f"phase 20: R24-only stage (bench.py's): wall "
+          f"{walls_r24[False] * 1e3:.1f} ms = {rate_r24:.6g} spectra/s, "
+          f"{rate_r24 / fb_rate:.4f} of forward_batch's; with the fp16 "
+          f"upload {walls_r24[True] * 1e3:.1f} ms, max|dTB| {comp_err:.3e} K "
+          f"(bound 0.05)")
+    check(comp_err < 0.05, f"compressed upload {comp_err} K")
+    return launches
 
 
 def main() -> int:
@@ -558,6 +897,8 @@ def main() -> int:
             line.append(f"{'kernels' if use_kernels else 'plain'} "
                         f"{ms:.4f} ms = {rate:.6g} spectra/s, peak "
                         f"{peak:.1f} MiB")
+            if use_kernels and outputs == ("tb",):
+                fb_rate = rate
         print(f"phase 4: forward_batch B={B} outputs={outputs}: "
               + "; ".join(line))
     sweep_ms = timed_ms(lambda: lbl.forward_all_models(profiles, cfg))
@@ -1421,6 +1762,15 @@ def main() -> int:
           f"{oem_ms:.4f} ms = {oem_ms / BR:.5f} ms/profile, peak "
           f"{oem_peak:.1f} MiB above the live tensors")
 
+    # ---- phase 20: the campaign forward stage -----------------------------
+    stage_launches = forward_stage_phase(dev, fb_rate, {
+        "absorption_lb": absorption_lb, "forward_lb": forward_lb,
+        "absorption_tangents_lb": absorption_tangents_lb,
+        "kmatrix_assembled_lb": kmatrix_assembled_lb,
+        "kmatrix_assembled_rho_lwc_lb": kmatrix_assembled_rho_lwc_lb,
+        "absorption_spectral": absorption_spectral,
+        "downwelling_lb": downwelling_lb, "chain": chain})
+
     kernel_rows = [
         {"name": "absorption_lb", "route": "cuda",
          "source": f"{PKG}/csrc/absorption.cu",
@@ -1481,6 +1831,7 @@ def main() -> int:
     # also without the host's share of an event pair (K7's time is one)
     for row in kernel_rows:
         row["device_ms"] = graph_times.get(row["name"], row["ms"])
+        row["launches_forward_stage"] = stage_launches[row["name"]]
     kernel_rows[1].update(
         launches_fast_path=fast_launches["forward_lb"], body=main_body,
         alpha_is_mid_ms=k2_mid_ms, alpha_is_mid_plain_ms=k2_mid_plain_ms,

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..constants import hatpro
+from ..data import preprocess
 from ..ops import geometry, rte, thermo
 from ..ops.cuda.absorption import absorption_lb, absorption_lb_reference
 from ..ops.cuda.rte import forward_lb
@@ -386,6 +387,40 @@ def distill(profiles: dict, config: FastConfig = FastConfig(),
     return {"w": params["w"].detach()}, history
 
 
+def distill_on_dataset(ds, config: FastConfig = FastConfig(),
+                       crop: int = 0, steps: int = 0, device=None) -> dict:
+    """Fit the fast operator on a harmonized campaign dataset (the analogue
+    of RTTOV-gb's offline coefficient training, done in-process here).
+
+    Profiles with a non-finite value are left out; the rest go to `device`
+    (the CUDA card when None).  With steps=0 this is the closed-form ridge
+    fit only; steps>0 adds the TB-space fine-tune (`distill`).  Distilling
+    on the target profile population matters: the regression extrapolates
+    poorly outside the pressure/temperature range it was fit on.
+    """
+    raw = preprocess.profiles_for_forward(ds, crop=crop)
+    mask = np.ones(raw["z"].shape[0], bool)
+    for v in raw.values():
+        mask &= np.isfinite(np.asarray(v)).all(axis=1)
+    dev = resolve_device(device)
+    profiles = {k: torch.from_numpy(np.asarray(v)[mask]).to(dev)
+                for k, v in raw.items()}
+    if steps:
+        params, _ = distill(profiles, config, steps=steps)
+        return params
+    return fit_closed_form(profiles, config)
+
+
+def params_from_numpy(params: dict, device=None) -> dict:
+    """Weights {"w": (72, C)} as tensors on `device` (the CUDA card when
+    None): the JAX package's weights as numpy arrays (or anything
+    `np.asarray` takes), or the port's tensors, detached."""
+    dev = resolve_device(device)
+    return {k: (v.detach() if torch.is_tensor(v)
+                else torch.from_numpy(np.array(v))).to(dev)
+            for k, v in params.items()}
+
+
 def save_params(params: dict, path: str) -> None:
     """Write the weights as a numpy `.npz` archive (the JAX package's
     format: one array per key)."""
@@ -395,9 +430,8 @@ def save_params(params: dict, path: str) -> None:
 def load_params(path: str, device=None) -> dict:
     """Read an `.npz` written by `save_params` of either package onto
     `device` (the CUDA card when None)."""
-    dev = resolve_device(device)
     with np.load(path) as z:
-        return {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+        return params_from_numpy({k: z[k] for k in z.files}, device)
 
 
 class FastOperator(nn.Module):

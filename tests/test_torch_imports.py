@@ -5,6 +5,7 @@ number for number."""
 import ast
 import ctypes
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -64,6 +65,52 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the data layer and the forward stage, each imported with
+# jax and the JAX package blocked
+STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
+                 "data.dataset", "data.netcdf", "data.synthetic",
+                 "data.radiosonde", "data.mwr", "data.cloud",
+                 "data.preprocess", "data.les", "eval", "eval.deviations",
+                 "eval.sky", "pipeline", "pipeline.forward",
+                 "pipeline.merge", "models.fast")
+
+_BLOCKED_IMPORTS = f"""
+import importlib, json, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', '{JAX_PKG}'):
+            raise ImportError('blocked: ' + name)
+sys.meta_path.insert(0, Block())
+result = {{}}
+for name in sys.argv[1:]:
+    try:
+        importlib.import_module('{port.__name__}.' + name)
+        result[name] = 'ok'
+    except Exception as exc:
+        result[name] = repr(exc)
+bad = sorted(k for k in sys.modules if k.split('.')[0] in
+             ('jax', 'jaxlib', '{JAX_PKG}'))
+print(json.dumps({{'modules': result, 'loaded': bad}}))
+"""
+
+
+@pytest.fixture(scope="module")
+def blocked_imports():
+    """One interpreter, with jax and the JAX package made unimportable,
+    imports each module of the data layer and the stage in turn."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORTS, *STAGE_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", STAGE_MODULES)
+def test_stage_module_imports_with_jax_blocked(blocked_imports, name):
+    assert blocked_imports["modules"][name] == "ok", blocked_imports
+    assert blocked_imports["loaded"] == []
+
+
 TABLE_MODULES = ("physics", "hatpro", "h2o_lines", "o2_lines", "o3_lines",
                  "afgl")
 
@@ -86,6 +133,8 @@ def test_port_imports_from_a_directory_that_holds_nothing_else(tmp_path):
             f"from {port.__name__}.models import fast, lbl, retrieval, "
             f"jacobians, spectral; "
             f"from {port.__name__}.parallel import profiling; "
+            f"from {port.__name__}.pipeline import forward, merge; "
+            f"from {port.__name__}.data import preprocess, synthetic; "
             f"here = pathlib.Path.cwd().resolve(); "
             f"assert pathlib.Path(m.__file__).resolve().is_relative_to(here);"
             f" assert pathlib.Path(hatpro.__file__).resolve()"

@@ -6,6 +6,7 @@ The tests marked `cuda` need an NVIDIA GPU and nvcc; elsewhere they skip.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -808,3 +809,61 @@ def test_retrieval_on_the_card_runs_the_rte_kernel_each_step(device):
     for name in ("t", "rho"):
         assert float((k_closed[name] - k_auto[name]).abs().max()) <= \
             2e-3 * float(k_auto[name].abs().max())
+
+
+@pytest.mark.cuda
+def test_forward_stage_on_the_card(device, tmp_path):
+    """The campaign stage on a synthetic campaign of 3 sondes, in chunks of
+    2 (the last chunk holds one): the launches of every kernel of its path,
+    its TBs against the plain path, and the same outputs in one chunk of
+    all three: the LBL TBs and the K-matrices to the bit (their kernels
+    compute each profile alone), the fast operator's within 1e-4 K and 1e-6
+    (cuBLAS may order the 72-deep product otherwise at another batch)."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.data import (
+        preprocess, synthetic)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.pipeline import (
+        forward_stage)
+
+    sondes, l1 = [], []
+    for i in range(3):
+        sondes.append(synthetic.write_sonde_nc_arms(
+            str(tmp_path / f"2024080{5 + i}_102936.nc"), seed=i))
+        l1.append(synthetic.write_mwr_l1(
+            str(tmp_path / f"mwr_l1_{i}.nc"),
+            np.datetime64(f"2024-08-0{5 + i}T10:29:36"), seed=10 + i))
+    # times without an instrument's TBs are dropped
+    ds = preprocess.preprocess_files(sondes, "Vital", "Juelich",
+                                     {"joyhat": l1})
+    assert ds.dims["time"] == 3
+    params = fast.distill_on_dataset(ds, device=device)
+    models = ("R24", "R17")
+    wrappers = (absorption_lb, forward_lb, absorption_tangents_lb,
+                kmatrix_assembled_lb, kmatrix_assembled_rho_lwc_lb)
+    for fn in wrappers:
+        fn.launches = 0
+    out = forward_stage(ds.copy(), models, params, with_jacobians=True,
+                        batch_size=2, device=device)
+    chunks = 2 * 2
+    assert [fn.launches for fn in wrappers] == [
+        len(models) * chunks, (len(models) + 1) * chunks, chunks, chunks,
+        chunks]
+    names = [k for k in out.variables
+             if k.startswith(("TBs_LBL_", "TBs_Fast", "ttrans_", "levtrans_",
+                              "Jacobian_"))]
+    assert len(names) == len(models) + 6
+    assert all(np.isfinite(out[k].data).all() for k in names)
+    plain = forward_stage(ds.copy(), models, params, batch_size=2,
+                          fused=False, device=device)
+    for name in ("TBs_LBL_R24", "TBs_LBL_R17", "TBs_Fast"):
+        np.testing.assert_allclose(out[name].data, plain[name].data,
+                                   rtol=0, atol=1e-2, err_msg=name)
+    whole = forward_stage(ds.copy(), models, params, with_jacobians=True,
+                          device=device)
+    for name in names:
+        if name.endswith("_Fast"):
+            atol = 1e-4 if name.startswith("TBs_") else 1e-6
+            np.testing.assert_allclose(out[name].data, whole[name].data,
+                                       rtol=0, atol=atol, err_msg=name)
+        else:
+            np.testing.assert_array_equal(out[name].data, whole[name].data,
+                                          err_msg=name)
