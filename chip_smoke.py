@@ -1,13 +1,13 @@
 """Drive the PyTorch/CUDA port's line-by-line forward, K-matrix,
 monochromatic spectral forward, primitive-rate microbenchmark with the
-kernels' bounds, fast operator, retrieval, forward stage and command line
-on one GPU and check them.
+kernels' bounds, fast operator, retrieval, forward stage, command line,
+multi-device splits and literature checkpoints on one GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's kernels from `csrc/` and goes through
-twenty-two phases, each printing its own lines:
+twenty-three phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions,
      whether matplotlib and h5py import on the host, the
@@ -122,10 +122,23 @@ twenty-two phases, each printing its own lines:
      to phase 20's outputs, its wall (median of 3) split into NetCDF read,
      stage and NetCDF write, and the file's size; (g) `fast.distill` stopped
      at 10 steps and resumed from its checkpoint to 20, equal to 20 steps
-     in one call.
+     in one call;
+ 22. the multi-device layer (`parallel/`) on meshes of the one card, with
+     the launch counts of each call: (a) `forward_sharded` on
+     `single_device_mesh()` at B=1024 x L=180, R24, tb, equal to the bit to
+     `forward_batch`; (b) the same on a virtual data=4 mesh of the card, at
+     B=1024 and at B=1021 (padded to 1024); (c) `forward_spectral_sharded`
+     plus `srf_convolve` at 32 x 180 x 50,000 on a spectral=2 mesh against
+     phase 12's spectrum; (d) `scaling.measure` at 1, 2 and 4 entries and
+     `cli.main(["bench"])`, each row printed with the card's name and power
+     limit; (e) `dryrun_multichip(4)` on the card; (f) `run_checkpoints` for
+     the nine releases with the tb rows on the card, all ok, against the
+     same call on the CPU.
 
-It then prints one JSON line of per-kernel results and, last, one JSON line
-naming the device.  Any failed check raises, and the exit code is not 0.
+It then prints one JSON line of per-kernel results (with the launches of
+the main path, of phase 20's stage call, of phase 21's CLI calls and of
+phase 22's sharded calls) and, last, one JSON line naming the device.  Any
+failed check raises, and the exit code is not 0.
 Without a CUDA device it exits with 1 and prints no result.
 """
 
@@ -992,6 +1005,170 @@ def cli_phase(dev, counted, stage_ds, stage_out):
         check(same and h1 + h2 == h_whole, "resumed distillation differs")
     print(f"phase 21: launches by the CLI's calls, (f)'s timed repeats left "
           f"out: {shown(total)}")
+    return total
+
+
+def parallel_phase(dev, counted, smi, spec_profiles, f_spec, spec_tb, srf,
+                   spec_srf):
+    """Phase 22: the multi-device layer on the card.  (a) `forward_sharded`
+    on `single_device_mesh()`; (b) on a virtual data=4 mesh of the card, at
+    B and at B - 3; (c) `forward_spectral_sharded` plus `srf_convolve` on a
+    spectral=2 mesh against phase 12's spectrum; (d) `scaling.measure` at
+    1, 2 and 4 entries and `cli.main(["bench"])`; (e) `dryrun_multichip(4)`;
+    (f) `run_checkpoints` for the nine releases, the tb rows on the card.
+    Returns the launches of each kernel wrapper in `counted` summed over the
+    calls of (a), (b), (c), (e) and (f); (d)'s timing loops are left out,
+    as are the unsharded references."""
+    import contextlib
+    import io
+
+    from mwr_fast_forward_operators_and_lbls_tpu_torch import anchors
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.cli.main import (
+        main as cli)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+        lbl, spectral)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
+        dryrun, make_mesh, scaling, sharding, single_device_mesh)
+
+    total = dict.fromkeys(counted, 0)
+
+    def run(fn, count=True):
+        """fn() with every count set to 0 just before it and read just
+        after: (result, launches of the kernels it reached)."""
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in counted.items()}
+        if count:
+            for k, v in launches.items():
+                total[k] += v
+        return res, {k: v for k, v in launches.items() if v}
+
+    cfg = lbl.LBLConfig(model="R24", outputs=("tb",))
+    profiles = lbl.demo_batch(B, L, device=dev)
+    want = lbl.forward_batch(profiles, cfg)["tb"]
+
+    # (a) the one-card mesh
+    out, got = run(lambda: sharding.forward_sharded(
+        profiles, single_device_mesh(), cfg)["tb"])
+    same = torch.equal(out, want)
+    print(f"phase 22: (a) forward_sharded on single_device_mesh(), B={B} "
+          f"L={L}, R24, tb: launches {got}; equal to the bit to "
+          f"forward_batch: {same}")
+    check(same and got == {"absorption_lb": 1, "forward_lb": 1},
+          f"(a) single-device mesh: {got}, equal {same}")
+
+    # (b) a virtual data=4 mesh of the card, at B and with padding
+    mesh4 = make_mesh([dev] * 4)
+    for b in (B, B - 3):
+        prof = {k: v[:b] for k, v in profiles.items()}
+        out, got = run(lambda: sharding.forward_sharded(prof, mesh4,
+                                                        cfg)["tb"])
+        ref = want[:b] if b == B else lbl.forward_batch(prof, cfg)["tb"]
+        same = torch.equal(out, ref)
+        print(f"phase 22: (b) forward_sharded on a virtual mesh "
+              f"{mesh4.shape} of the card, B={b} (4 shards of "
+              f"{-(-b // 4)}): launches {got}; max|dTB| vs forward_batch "
+              f"{float((out - ref).abs().max()):.3e} K, equal to the bit: "
+              f"{same}")
+        check(same and got == {"absorption_lb": 4, "forward_lb": 4},
+              f"(b) virtual data=4 mesh, B={b}: {got}, equal {same}")
+
+    # the cost of the split: CUDA events around each call, host included
+    single = single_device_mesh()
+    placed4, _ = sharding.shard_profiles(profiles, mesh4)
+    fb_ms = timed_ms(lambda: lbl.forward_batch(profiles, cfg))
+    one_ms = timed_ms(lambda: sharding.forward_sharded(profiles, single, cfg))
+    four_ms = timed_ms(lambda: sharding.forward_sharded(profiles, mesh4, cfg))
+    placed_ms = timed_ms(lambda: sharding.forward_sharded_placed(
+        placed4, mesh4, cfg))
+    print(f"phase 22: (b) times at B={B} (median of {REPEATS}, {smi}): "
+          f"forward_batch {fb_ms:.4f} ms; forward_sharded on the one-card "
+          f"mesh {one_ms:.4f} ms, on the virtual data=4 mesh {four_ms:.4f} ms "
+          f"(placed: {placed_ms:.4f} ms)")
+
+    # (c) the spectral split of phase 12's spectrum
+    mesh_s = make_mesh([dev] * 2, spectral=2)
+    out, got = run(lambda: sharding.forward_spectral_sharded(
+        spec_profiles, f_spec, mesh_s, "R24", (90.0,), freq_chunk=CHUNK))
+    tb_srf = sharding.srf_convolve(out, srf)
+    d_tb = float((out - spec_tb).abs().max())
+    d_srf = float((tb_srf - spec_srf).abs().max())
+    per_slice = -(-(NF_SPEC // 2) // CHUNK)
+    print(f"phase 22: (c) forward_spectral_sharded on {mesh_s.shape}, {BS} x "
+          f"{L} x {NF_SPEC} in chunks of {CHUNK}: launches {got} (predicted "
+          f"{2 * per_slice} each); max|dTB| vs phase 12's spectrum {d_tb:.3e} "
+          f"K (bound 1e-4), equal to the bit: {torch.equal(out, spec_tb)}; "
+          f"after the SRF {d_srf:.3e} K")
+    check(got == {"absorption_spectral": 2 * per_slice,
+                  "downwelling_lb": 2 * per_slice}
+          and d_tb <= 1e-4 and d_srf <= 1e-4,
+          f"(c) spectral split: {got}, {d_tb} K, {d_srf} K")
+    dense_ms = timed_ms(lambda: spectral.forward_spectral(
+        spec_profiles, f_spec, (90.0,), "R24", freq_chunk=CHUNK),
+        repeats=10)
+    split_ms = timed_ms(lambda: sharding.forward_spectral_sharded(
+        spec_profiles, f_spec, mesh_s, "R24", (90.0,), freq_chunk=CHUNK),
+        repeats=10)
+    print(f"phase 22: (c) times (median of 10, {smi}): forward_spectral "
+          f"{dense_ms:.4f} ms, forward_spectral_sharded on {mesh_s.shape} "
+          f"{split_ms:.4f} ms")
+
+    # (d) the scaling harness and the CLI's bench
+    rows, got = run(lambda: scaling.measure(devices=[dev] * 4,
+                                            device_counts=(1, 2, 4)),
+                    count=False)
+    for row in rows:
+        print(f"phase 22: (d) scaling.measure, per_device_batch=256 ({smi}): "
+              f"{json.dumps(row)}")
+    # a warm-up and 3 x 11 timed calls a row, one launch a shard and call
+    sweep_want = {"absorption_lb": 34 * 7, "forward_lb": 34 * 7}
+    print(f"phase 22: (d) launches during that sweep: {got}")
+    check([r["n_devices"] for r in rows] == [1, 2, 4] and got == sweep_want
+          and all(r["spectra_per_s"] > 0 for r in rows), f"(d) sweep {got}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (rc, got) = run(lambda: cli(["bench"]), count=False)
+    for line in buf.getvalue().splitlines():
+        print(f"phase 22: (d) cli bench ({smi}): {line}")
+    check(rc == 0 and got == {"absorption_lb": 34, "forward_lb": 34},
+          f"(d) cli bench {got}")
+
+    # (e) the dry run on 4 entries of the card
+    t0 = time.perf_counter()
+    res, got = run(lambda: dryrun.dryrun_multichip(4))
+    print(f"phase 22: (e) dryrun_multichip(4): launches {got}, "
+          f"{time.perf_counter() - t0:.1f} s; sharded step loss "
+          f"{res['loss']:.6f} against {res['loss_unsharded']:.6f}, max|dw| "
+          f"{res['w_delta']:.3e}; K {res['k_delta']:.3e} of max |K|")
+    check(all(got.get(k, 0) > 0 for k in counted if k != "chain"),
+          f"(e) dry run did not reach every kernel: {got}")
+
+    # (f) the literature checkpoints, tb rows on the card and on the CPU
+    worst, n_rows = 0.0, 0
+    for model in anchors.ALL_RELEASES:
+        rows, got = run(lambda: anchors.run_checkpoints(model))
+        cpu_rows = anchors.run_checkpoints(model, device="cpu")
+        bad = [r["name"] for r in rows if not r["ok"]]
+        check(not bad, f"(f) {model} violates its anchors: {bad}")
+        check(got == {"absorption_lb": 6, "forward_lb": 6},
+              f"(f) {model} launches {got}")
+        for r, c in zip(rows, cpu_rows, strict=True):
+            d = abs(r["value"] - c["value"])
+            check(r["name"] == c["name"]
+                  and (d <= 1e-2 if r["kind"] == "tb" else d == 0.0),
+                  f"(f) {model} {r['name']}: card {r['value']} cpu "
+                  f"{c['value']}")
+            if r["kind"] == "tb":
+                worst = max(worst, d)
+        n_rows += len(rows)
+    print(f"phase 22: (f) run_checkpoints, nine releases: {n_rows} rows all "
+          f"ok; the tb rows (K1 and K2 6 times a release) within "
+          f"{worst:.3e} K of the same call on the CPU (bound 1e-2), the "
+          f"other rows equal")
+    print(f"phase 22: launches by the sharded entry points, (d) left out: "
+          f"{ {k: v for k, v in total.items() if v} }")
     return total
 
 
@@ -2211,6 +2388,10 @@ def main() -> int:
     cli_launches = cli_phase(dev, counted, stage_ds, stage_out)
     del stage_ds, stage_out
 
+    # ---- phase 22: the multi-device splits and the literature checkpoints -
+    parallel_launches = parallel_phase(dev, counted, smi, spec_profiles,
+                                       f_spec, spec["tb"], srf, tb_srf)
+
     kernel_rows = [
         {"name": "absorption_lb", "route": "cuda",
          "source": f"{PKG}/csrc/absorption.cu",
@@ -2273,6 +2454,7 @@ def main() -> int:
         row["device_ms"] = graph_times.get(row["name"], row["ms"])
         row["launches_forward_stage"] = stage_launches[row["name"]]
         row["launches_cli"] = cli_launches[row["name"]]
+        row["launches_parallel"] = parallel_launches[row["name"]]
     kernel_rows[1].update(
         launches_fast_path=fast_launches["forward_lb"], body=main_body,
         alpha_is_mid_ms=k2_mid_ms, alpha_is_mid_plain_ms=k2_mid_plain_ms,

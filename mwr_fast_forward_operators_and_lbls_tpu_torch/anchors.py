@@ -1,7 +1,252 @@
-"""Deterministic analytic profiles behind the frozen TB golden
-(`tests/golden/tb_standard.json`)."""
+"""Accuracy anchors: the deterministic analytic profiles behind the frozen
+TB golden (`tests/golden/tb_standard.json`) and the literature checkpoints.
+
+The port's own copy of the JAX package's `anchors.py`; the checkpoint table
+is copied number for number (`tests/test_torch_anchors.py` holds it equal
+to the JAX table and to `tests/golden/literature.json`).  Checkpoint kinds:
+
+* ``absorption``, ``absorption_ratio`` -- envelopes on the absolute scale
+  and the pressure invariance of a line's peak, from the plain torch
+  absorption (`ops/absorption`);
+* ``halfwidth`` -- the half-width at half maximum of an isolated line,
+  measured end to end from the computed spectrum, against the published
+  air-broadened width of the release's own source (2 %; a +3 % width
+  perturbation fails it);
+* ``tb`` -- zenith downwelling TB windows on the standard midlatitude
+  profile, from `models/lbl.forward_batch` (K1 and K2 on the card).
+
+The absorption kinds compute in float32 on the CPU from host numbers: the
+JAX functions compute in float32 under the JAX package's default precision
+(64-bit mode off), as its tests run them.  The ``tb`` kinds compute on
+`device`: the CUDA card when it is None.
+"""
 
 import numpy as np
+import torch
+
+from .constants import H2O_MODELS, O2_MODELS
+from .models import lbl
+from .ops.absorption import (h2o_absorption, n2_absorption, o2_absorption,
+                             total_absorption)
+from .ops.tensors import resolve_device
+
+NP_TO_DB = 4.342944819032518
+
+ALL_RELEASES = ("R98", "R03", "R16", "R17", "R19", "R19SD", "R20", "R20SD",
+                "R24")
+# The qSD-VVW shape of the SD variants narrows the effective 22/183-GHz
+# halfwidth by a few percent relative to gamma0 by construction, so the H2O
+# width anchors apply to the ordinary-VVW releases only.
+_NON_SD = ("R98", "R03", "R16", "R17", "R19", "R20", "R24")
+
+CHECKPOINTS = [
+    # ------------------------------------------------------------------
+    # kind="absorption": absolute-scale envelopes — bound the overall
+    # magnitude against genuinely external curves.  Round-5 tightening
+    # (VERDICT r4 Next #7): every envelope is now <= 10 %, anchored at the
+    # published curve value with the nine releases' own spread (<= 6.3 %)
+    # as the margin check; the former 35 % 118-GHz figure-reading anchor
+    # is replaced by the SHARPER pressure-invariance ratio below.
+    # ------------------------------------------------------------------
+    dict(kind="absorption", name="dry_60GHz_sea_level",
+         f_ghz=60.0, p_hpa=1013.25, t_k=288.15, rho_gm3=0.0,
+         alpha_db_km=15.0, rel_tol=0.10, releases="all",
+         source="ITU-R P.676 Annex/figures & Rosenkranz (1975): sea-level "
+                "dry-air specific attenuation at 60 GHz ~ 15 dB/km "
+                "(releases compute 16.0-16.1, within 8 %)"),
+    dict(kind="absorption", name="h2o_22GHz_7p5gm3",
+         f_ghz=22.235, p_hpa=1013.25, t_k=288.15, rho_gm3=7.5,
+         alpha_db_km=0.18, rel_tol=0.10, dry_subtracted=True, releases="all",
+         source="ITU-R P.676 standard-atmosphere water-vapour curve "
+                "(7.5 g/m^3): ~0.19 dB/km total at the 22-GHz line, of "
+                "which ~0.012 is dry -> ~0.18 dB/km H2O"),
+    dict(kind="absorption", name="h2o_183GHz_7p5gm3",
+         f_ghz=183.31, p_hpa=1013.25, t_k=288.15, rho_gm3=7.5,
+         alpha_db_km=28.5, rel_tol=0.10, dry_subtracted=True, releases="all",
+         source="ITU-R P.676 water-vapour curve at 183.31 GHz, 7.5 g/m^3: "
+                "~28-30 dB/km"),
+    dict(kind="absorption", name="window_31GHz_dry",
+         f_ghz=31.4, p_hpa=1013.25, t_k=288.15, rho_gm3=0.0,
+         alpha_db_km=0.030, rel_tol=0.10, releases="all",
+         source="ITU-R P.676 dry curve in the 31-GHz window: ~0.03 dB/km "
+                "(O2 wing + N2 continuum)"),
+    # ------------------------------------------------------------------
+    # kind="absorption_ratio": exact line-shape invariants.  The peak
+    # absorption of a pressure-broadened line is PRESSURE-INDEPENDENT
+    # (alpha_peak ~ S*n/(pi*gamma) with n ~ P and gamma ~ P — standard
+    # VVW/Lorentz result, e.g. Janssen 1993 ch. 2; Townes & Schawlow),
+    # so alpha_dry(118.7503, 1013 hPa)/alpha_dry(118.7503, 507 hPa) must
+    # be 1 up to the P^2-scaling baseline under the line (~0.4 % here).
+    # This replaces the former 35 % figure-read 118-GHz envelope with a
+    # 5 % anchor that fails on any wrong gamma(P) exponent, strength
+    # prefactor, or mixing normalization.
+    # ------------------------------------------------------------------
+    dict(kind="absorption_ratio", name="o2_118_peak_pressure_invariance",
+         f_ghz=118.7503, t_k=288.15, rho_gm3=0.0,
+         p_hpa_num=1013.25, p_hpa_den=506.625,
+         ratio=1.0, rel_tol=0.05, releases="all",
+         source="pressure-independence of the Lorentzian line-center "
+                "absorption (S*P/(pi*gamma(P)) with gamma ~ P); textbook "
+                "result, see Janssen (1993) eq. 2.52ff"),
+    # ------------------------------------------------------------------
+    # kind="halfwidth": per-release published air-broadened widths,
+    # measured end-to-end from the computed spectrum.  width_ghz_bar is
+    # the published value of the release's own source.  2 % tolerance.
+    # ------------------------------------------------------------------
+    dict(kind="halfwidth", name="h2o_22_width_ros98", species="h2o",
+         f0_ghz=22.2351, p_hpa=100.0, t_k=300.0, rho_gm3=0.02,
+         width_ghz_bar=2.81, rel_tol=0.02, releases=["R98"],
+         source="Rosenkranz (1998, Radio Sci. 33) abh2o.f line table: "
+                "gamma_air(22.235 GHz, 300 K) = 2.81 MHz/hPa"),
+    dict(kind="halfwidth", name="h2o_22_width_tret03", species="h2o",
+         f0_ghz=22.2351, p_hpa=100.0, t_k=300.0, rho_gm3=0.02,
+         width_ghz_bar=2.78, rel_tol=0.02, releases=["R03"],
+         source="Tretyakov et al. (2003) 22-GHz remeasurement as carried "
+                "in the Rosenkranz 2003 release: 2.78 MHz/hPa"),
+    dict(kind="halfwidth", name="h2o_22_width_tret16", species="h2o",
+         f0_ghz=22.23508, p_hpa=100.0, t_k=300.0, rho_gm3=0.02,
+         width_ghz_bar=2.69, rel_tol=0.02, releases=["R16", "R17"],
+         source="Tretyakov (2016, JQSRT 173) review recommended "
+                "gamma_air(22.235) = 2.69 MHz/hPa (25.7+/-0.5 kHz/Pa "
+                "family)"),
+    dict(kind="halfwidth", name="h2o_22_width_kosh18", species="h2o",
+         f0_ghz=22.23508, p_hpa=100.0, t_k=300.0, rho_gm3=0.02,
+         width_ghz_bar=2.71, rel_tol=0.02, releases=["R19", "R20", "R24"],
+         source="Koshelev et al. (2018, JQSRT 205) dual-spectrometer "
+                "22-GHz study: gamma_air = 2.71 MHz/hPa, carried in the "
+                "2019+ releases"),
+    dict(kind="halfwidth", name="h2o_183_width_ros98", species="h2o",
+         f0_ghz=183.3101, p_hpa=100.0, t_k=300.0, rho_gm3=0.02,
+         width_ghz_bar=2.81, rel_tol=0.02, releases=["R98", "R03"],
+         source="Rosenkranz (1998) abh2o.f line table: "
+                "gamma_air(183.31 GHz) = 2.81 MHz/hPa"),
+    dict(kind="halfwidth", name="h2o_183_width_tret16", species="h2o",
+         f0_ghz=183.31009, p_hpa=100.0, t_k=300.0, rho_gm3=0.02,
+         width_ghz_bar=3.00, rel_tol=0.02,
+         releases=["R16", "R17", "R19", "R20", "R24"],
+         source="Tretyakov (2016) review: gamma_air(183.31) = 3.00 MHz/hPa "
+                "(HITRAN 0.1009 cm^-1/atm ~ 2.99 GHz/bar)"),
+    dict(kind="halfwidth", name="o2_118_width_liebe92", species="o2",
+         f0_ghz=118.7503, p_hpa=100.0, t_k=300.0, rho_gm3=0.0,
+         width_ghz_bar=1.630, rel_tol=0.02, releases=["R98", "R03"],
+         source="Liebe, Rosenkranz & Hufford (1992) width set carried in "
+                "o2abs.f (1995): gamma(118.75) = 1.630 GHz/bar"),
+    dict(kind="halfwidth", name="o2_118_width_tret05", species="o2",
+         f0_ghz=118.7503, p_hpa=100.0, t_k=300.0, rho_gm3=0.0,
+         width_ghz_bar=1.688, rel_tol=0.02, releases=["R16", "R17"],
+         source="Tretyakov et al. (2005, JMS 231) 60-GHz band + 118-GHz "
+                "width remeasurement: gamma(118.75) = 1.688 GHz/bar"),
+    dict(kind="halfwidth", name="o2_118_width_2019fit", species="o2",
+         f0_ghz=118.7503, p_hpa=100.0, t_k=300.0, rho_gm3=0.0,
+         width_ghz_bar=1.685, rel_tol=0.02,
+         releases=["R19", "R19SD", "R20", "R20SD"],
+         source="o2abs_19.f 49-line table (Makarov et al. 2011/2019 fit): "
+                "gamma(118.75) = 1.685 GHz/bar"),
+    dict(kind="halfwidth", name="o2_118_width_kosh21", species="o2",
+         f0_ghz=118.7503, p_hpa=100.0, t_k=300.0, rho_gm3=0.0,
+         width_ghz_bar=1.667, rel_tol=0.02, releases=["R24"],
+         source="Koshelev et al. (2021) 118.75-GHz line remeasurement "
+                "carried in the 2024 release: gamma = 1.667 GHz/bar"),
+    # ------------------------------------------------------------------
+    # kind="tb": downwelling zenith TB windows on the deterministic
+    # standard midlatitude profile (tools/make_golden.py
+    # standard_profiles(), surface T = 288.15 K, 70 % RH).
+    # ------------------------------------------------------------------
+    dict(kind="tb", name="vband_opaque_58GHz", f_ghz=58.0,
+         profile="midlat", lo_k=283.0, hi_k=288.65, releases="all",
+         source="opaque-channel physics: at ~10+ dB/km the zenith TB "
+                "saturates to the boundary-layer mean temperature "
+                "(T_surf - [0..5] K); HATPRO 58-GHz channel behavior, "
+                "e.g. Loehnert & Maier (2012)"),
+    dict(kind="tb", name="vband_opaque_56p66GHz", f_ghz=56.66,
+         profile="midlat", lo_k=281.0, hi_k=288.65, releases="all",
+         source="same opaque-channel physics, one weighting-function "
+                "scale height higher (T_surf - [0..7] K)"),
+    dict(kind="tb", name="vband_wing_51p26GHz", f_ghz=51.26,
+         profile="midlat", lo_k=80.0, hi_k=170.0, releases="all",
+         source="semi-transparent V-band wing: documented HATPRO 51.26-GHz "
+                "zenith TB climatology ~ 100-150 K for midlatitude "
+                "clear sky"),
+    dict(kind="tb", name="kband_22p24GHz", f_ghz=22.24,
+         profile="midlat", lo_k=15.0, hi_k=60.0, releases="all",
+         source="K-band vapor line, ~14 mm IWV midlatitude profile: "
+                "zenith TB ~ 20-50 K (HATPRO climatology)"),
+    dict(kind="tb", name="window_31p4GHz_below_22GHz", f_ghz=31.4,
+         profile="midlat", relative_to=22.24, lo_k=-40.0, hi_k=-1.0,
+         releases="all",
+         source="clear-sky spectral shape: the 31.4-GHz window channel "
+                "reads colder than the 22-GHz vapor line for any "
+                "non-desiccated profile (basis of the IWV/LWP two-channel "
+                "retrieval)"),
+]
+
+
+def _alpha_np(f_ghz, p_hpa, t_k, rho_gm3, model, h2o_model=None,
+              o2_model=None):
+    """Total gas absorption [Np/km] with optional model-dataclass
+    overrides, computed in float32 on the CPU; a float32 numpy array."""
+    hm = H2O_MODELS[model] if h2o_model is None else h2o_model
+    om = O2_MODELS[model] if o2_model is None else o2_model
+    f = torch.from_numpy(np.asarray(f_ghz, np.float32))
+    e = rho_gm3 * t_k / 217.0
+    a = (h2o_absorption(f, p_hpa, t_k, rho_gm3, hm)
+         + o2_absorption(f, p_hpa, t_k, rho_gm3, om)
+         + n2_absorption(f, p_hpa - e, t_k, variant=model))
+    return a.numpy()
+
+
+def measure_halfwidth_ghz_bar(model: str, f0_ghz: float, p_hpa: float,
+                              t_k: float, rho_gm3: float, species: str,
+                              h2o_model=None, o2_model=None) -> float:
+    """HWHM of an isolated line, measured from the computed spectrum.
+
+    Normalizes out the f^2 Van Vleck-Weisskopf prefactor, subtracts a
+    linear baseline fit to the outer 5 % of the scan window (continuum +
+    far wings of other lines), then interpolates the half-maximum
+    crossings on both flanks.  Returns the width in GHz/bar.
+    """
+    hm = H2O_MODELS[model] if h2o_model is None else h2o_model
+    om = O2_MODELS[model] if o2_model is None else o2_model
+    if species == "h2o":
+        idx = int(np.argmin(np.abs(hm.fl - f0_ghz)))
+        gamma = float(hm.w3[idx]) * p_hpa
+    else:
+        idx = int(np.argmin(np.abs(om.f - f0_ghz)))
+        gamma = float(om.w300[idx]) * p_hpa / 1000.0
+    # +/-25 gamma window: the Lorentzian's own value at the window edges
+    # (where the baseline is fit) is 1/626 of peak, bounding the
+    # baseline-subtraction bias on the measured HWHM to ~0.16 % -- small
+    # against the 2 % tolerance, and small enough that a +3 % width
+    # perturbation cannot hide inside it.  4001 points = 0.0125*gamma
+    # resolution; the linear interpolation of the half crossings is exact
+    # to O(step^2) ~ 4e-5 of gamma.
+    f = f0_ghz + np.linspace(-25.0, 25.0, 4001) * gamma
+    a = _alpha_np(f, p_hpa, t_k, rho_gm3, model, hm, om)
+    # Remove the f^2 prefactor (common to every VVW-family shape) so the
+    # measured halfwidth is that of the resonance itself.
+    a = a * (f0_ghz / f) ** 2
+    n_edge = max(len(f) // 20, 8)
+    # Linear baseline through the window edges.
+    x_edge = np.concatenate([f[:n_edge], f[-n_edge:]])
+    y_edge = np.concatenate([a[:n_edge], a[-n_edge:]])
+    coef = np.polyfit(x_edge - f0_ghz, y_edge, 1)
+    line = a - np.polyval(coef, f - f0_ghz)
+    peak_i = int(np.argmax(line))
+    half = 0.5 * line[peak_i]
+
+    def _cross(seg_f, seg_a):
+        above = seg_a >= half
+        j = int(np.argmax(above)) if seg_a[0] < half else 0
+        if j == 0:
+            return seg_f[0]
+        x0, x1 = seg_f[j - 1], seg_f[j]
+        y0, y1 = seg_a[j - 1], seg_a[j]
+        return x0 + (half - y0) * (x1 - x0) / (y1 - y0)
+
+    left = _cross(f[:peak_i + 1], line[:peak_i + 1])
+    right = _cross(f[peak_i:][::-1], line[peak_i:][::-1])
+    hwhm = 0.5 * (right - left)
+    return float(hwhm / (p_hpa / 1000.0))
 
 
 def standard_profiles(n_levels: int = 180) -> dict:
@@ -28,3 +273,82 @@ def standard_profiles(n_levels: int = 180) -> dict:
         profs["rho"].append(rho)
         profs["lwc"].append(np.zeros_like(z))
     return {k: np.stack(v) for k, v in profs.items()}
+
+
+def _standard_midlat_tb(model: str, f_ghz: float, device) -> float:
+    """Zenith downwelling TB on the deterministic midlatitude profile,
+    computed in float32 on `device`."""
+    one = {k: torch.from_numpy(v[:1]).to(device)
+           for k, v in standard_profiles().items()}
+    cfg = lbl.LBLConfig(model=model, freqs_ghz=(float(f_ghz),),
+                        elevations_deg=(90.0,), outputs=("tb",))
+    return float(lbl.forward_batch(one, cfg)["tb"][0, 0, 0])
+
+
+def applicable(cp: dict, model: str) -> bool:
+    rel = cp.get("releases", "all")
+    return rel == "all" or model in rel
+
+
+def run_checkpoints(model: str, kinds=None, h2o_model=None, o2_model=None,
+                    checkpoints=None, device=None) -> list:
+    """Evaluate all applicable checkpoints for one release.
+
+    Returns a list of dicts {name, kind, value, lo, hi, ok}.  Pass
+    h2o_model/o2_model dataclass overrides to test perturbed tables (the
+    +3 % falsifiability meta-test); ``tb`` checkpoints are skipped when
+    overrides are present (the LBL path resolves models by name).  The
+    ``tb`` checkpoints run on `device`: the CUDA card when None (a
+    RuntimeError before any work where there is none), `"cpu"` on request.
+    """
+    overridden = h2o_model is not None or o2_model is not None
+    chosen = [cp for cp in (CHECKPOINTS if checkpoints is None
+                            else checkpoints)
+              if applicable(cp, model)
+              and (kinds is None or cp["kind"] in kinds)
+              and not (cp["kind"] == "tb" and overridden)]
+    if any(cp["kind"] == "tb" for cp in chosen):
+        device = resolve_device(device)
+    rows = []
+    for cp in chosen:
+        if cp["kind"] == "absorption":
+            a = float(total_absorption(cp["f_ghz"], cp["p_hpa"], cp["t_k"],
+                                       cp["rho_gm3"], model=model)
+                      if not overridden else
+                      _alpha_np(cp["f_ghz"], cp["p_hpa"], cp["t_k"],
+                                cp["rho_gm3"], model, h2o_model, o2_model))
+            if cp.get("dry_subtracted"):
+                a -= float(_alpha_np(cp["f_ghz"], cp["p_hpa"], cp["t_k"],
+                                     0.0, model, h2o_model, o2_model))
+            value = a * NP_TO_DB
+            lo = cp["alpha_db_km"] * (1 - cp["rel_tol"])
+            hi = cp["alpha_db_km"] * (1 + cp["rel_tol"])
+        elif cp["kind"] == "absorption_ratio":
+            def _a(p_hpa):
+                if not overridden:
+                    return float(total_absorption(
+                        cp["f_ghz"], p_hpa, cp["t_k"], cp["rho_gm3"],
+                        model=model))
+                return float(_alpha_np(cp["f_ghz"], p_hpa, cp["t_k"],
+                                       cp["rho_gm3"], model, h2o_model,
+                                       o2_model))
+            value = _a(cp["p_hpa_num"]) / _a(cp["p_hpa_den"])
+            lo = cp["ratio"] * (1 - cp["rel_tol"])
+            hi = cp["ratio"] * (1 + cp["rel_tol"])
+        elif cp["kind"] == "halfwidth":
+            value = measure_halfwidth_ghz_bar(
+                model, cp["f0_ghz"], cp["p_hpa"], cp["t_k"], cp["rho_gm3"],
+                cp["species"], h2o_model, o2_model)
+            lo = cp["width_ghz_bar"] * (1 - cp["rel_tol"])
+            hi = cp["width_ghz_bar"] * (1 + cp["rel_tol"])
+        elif cp["kind"] == "tb":
+            value = _standard_midlat_tb(model, cp["f_ghz"], device)
+            if "relative_to" in cp:
+                value -= _standard_midlat_tb(model, cp["relative_to"],
+                                             device)
+            lo, hi = cp["lo_k"], cp["hi_k"]
+        else:  # pragma: no cover - schema guard
+            raise ValueError(f"unknown checkpoint kind {cp['kind']!r}")
+        rows.append(dict(name=cp["name"], kind=cp["kind"], value=value,
+                         lo=lo, hi=hi, ok=bool(lo <= value <= hi)))
+    return rows

@@ -1,11 +1,10 @@
 """Command-line interface: preprocess | forward | distill | evaluate.
 
 Torch counterpart of the JAX package's `cli/main.py`, with the same
-subcommands, arguments, defaults, outputs and exit codes but `bench` (which
-waits for the port's multi-device splits), and one global `--device` in
-place of the JAX package's platform switch and compile cache: the CUDA card
-when it is not given (RuntimeError where there is none), `--device cpu` for
-the plain torch paths on the CPU.  The subcommands reach the kernels through
+subcommands, arguments, defaults, outputs and exit codes, and one global
+`--device` in place of the JAX package's platform switch and compile cache:
+the CUDA card when it is not given (RuntimeError where there is none),
+`--device cpu` for the plain torch paths on the CPU.  The subcommands reach the kernels through
 the entry points they call; none launches one itself.
 
 Replaces the reference's bash-driven process chain (run_all_procs.sh ->
@@ -290,6 +289,19 @@ def cmd_spectral(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Throughput + scaling sweep of the sharded forward (JSON lines): over
+    every visible card, or over the one `--device` names."""
+    from ..parallel import scaling
+
+    dev = resolve_device(args.device)
+    devices = None if args.device is None else [dev]
+    for row in scaling.measure(per_device_batch=args.batch, devices=devices):
+        print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                          for k, v in row.items()}))
+    return 0
+
+
 def cmd_simulate_rttov(args) -> int:
     """Drop-in for the RTTOV-gb executable: prof_plev.dat -> output report
     (text protocol of RTTOV_gb_processing.py:80-305)."""
@@ -511,6 +523,11 @@ def build_parser() -> argparse.ArgumentParser:
     ss.add_argument("--model", default="R24")
     ss.add_argument("--chunk", type=int, default=4096)
     ss.set_defaults(fn=cmd_spectral)
+
+    sb = sub.add_parser("bench", help="throughput + scaling sweep")
+    sb.add_argument("--batch", type=int, default=256,
+                    help="per-device profile batch")
+    sb.set_defaults(fn=cmd_bench)
 
     srt = sub.add_parser("simulate-rttov",
                          help="act as RTTOV-gb: prof_plev.dat -> report")

@@ -130,8 +130,12 @@ def downwelling_tb_lb_from_alpha_mid(alpha_mid, ds_km, t_k, f_ghz,
     trans_total = e_ctau[:, :, -1]
 
     g_bot, g_top = _emission_factors(dtau)
-    atm = torch.sum((g_bot * b_bot[None] + g_top * b_top[None]) * trans_below,
-                    dim=2)                                       # (E, F, B)
+    # the layer sum over a contiguous last axis: torch then adds each
+    # profile's layers in one order whatever the batch, so a profile's TB
+    # does not depend on its neighbours (a sum over axis 2 of the (E, F,
+    # L-1, B) layout is ordered by B on the CPU, up to 1.2e-4 K apart)
+    emission = (g_bot * b_bot[None] + g_top * b_top[None]) * trans_below
+    atm = torch.sum(emission.transpose(2, 3).contiguous(), dim=-1)  # (E,F,B)
 
     tb = inverse_planck_tb(atm + cosmic0 * trans_total, fb)
     t_mr = inverse_planck_tb(atm / torch.clamp_min(1.0 - trans_total, 1e-10),

@@ -2,6 +2,7 @@
 counterparts of tests/test_cli.py, and the port's results.nc against the
 JAX CLI's on the same raw files."""
 
+import argparse
 import csv
 import json
 import os
@@ -13,8 +14,10 @@ import pytest
 import torch
 
 import mwr_fast_forward_operators_and_lbls_tpu_torch as tpkg
-from mwr_fast_forward_operators_and_lbls_tpu.cli.main import main as jmain
-from mwr_fast_forward_operators_and_lbls_tpu_torch.cli.main import main
+from mwr_fast_forward_operators_and_lbls_tpu.cli.main import (
+    build_parser as jbuild_parser, main as jmain)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.cli.main import (
+    build_parser, main)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.data import (
     netcdf, synthetic)
 
@@ -88,16 +91,22 @@ def test_cli_config(capsys):
 
 
 def test_cli_runs_as_a_module():
-    """`python -m <port>.cli`, as a user runs it; the parser has no
-    `bench` subcommand (it waits for the multi-device splits)."""
+    """`python -m <port>.cli`, as a user runs it; the parser has the JAX
+    CLI's subcommands, `bench` included, and refuses any other."""
     mod = f"{tpkg.__name__}.cli"
     proc = subprocess.run([sys.executable, "-m", mod, "--device", "cpu",
                            "config"], cwd=REPO, capture_output=True,
                           text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout)["batch_size"] == 256
+    sub = next(a for a in build_parser()._actions
+               if isinstance(a, argparse._SubParsersAction))
+    assert set(sub.choices) == set(next(
+        a for a in jbuild_parser()._actions
+        if isinstance(a, argparse._SubParsersAction)).choices)
+    assert "bench" in sub.choices
     with pytest.raises(SystemExit):
-        main(["bench"])
+        main(["no-such-subcommand"])
 
 
 def test_cli_missing_sondes(tmp_path):
@@ -234,7 +243,7 @@ def test_cli_evaluate_full_matrix(chain, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("command", (
-    "forward", "distill", "retrieve", "spectral", "simulate-rttov",
+    "forward", "distill", "retrieve", "spectral", "bench", "simulate-rttov",
     "simulate-arms", "run-all"))
 def test_cli_without_device_wants_a_card(chain, tmp_path, command):
     """Without --device on a host without a card every computing
@@ -249,6 +258,7 @@ def test_cli_without_device_wants_a_card(chain, tmp_path, command):
         "retrieve": ["retrieve", "-i", chain["results"], "-o", out,
                      "--fast-params", chain["params"]],
         "spectral": ["spectral", "-i", chain["harm"], "-o", out],
+        "bench": ["bench"],
         "simulate-rttov": ["simulate-rttov", "-i", out, "-o", out],
         "simulate-arms": ["simulate-arms", "-i", out, "-o", out],
         "run-all": ["run-all", "--sondes", chain["harm"], "--workdir", out],
@@ -257,6 +267,19 @@ def test_cli_without_device_wants_a_card(chain, tmp_path, command):
                                            "device='cpu'"):
         main(argv)
     assert os.listdir(tmp_path) == []
+
+
+def test_cli_bench_prints_the_jax_rows(capsys):
+    """`bench --device cpu` prints one JSON row per mesh size, with the
+    keys of the JAX package's `scaling.measure` rows."""
+    assert main(CPU + ["bench", "--batch", "2"]) == 0
+    rows = [json.loads(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r["n_devices"] for r in rows] == [1]
+    assert set(rows[0]) == {"n_devices", "seconds", "spectra_per_s",
+                            "efficiency", "sharding_overhead_eff",
+                            "platform", "note"}
+    assert rows[0]["platform"] == "cpu" and rows[0]["spectra_per_s"] > 0
 
 
 _NO_MATPLOTLIB = f"""

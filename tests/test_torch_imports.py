@@ -66,7 +66,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 # the modules of the data layer, the forward stage, the evaluation layer,
-# interop, checkpointing and the command line, each imported with jax, the
+# interop, checkpointing, the command line, the anchors and the multi-device
+# layer, each imported with jax, the
 # JAX package and matplotlib blocked (the figures import matplotlib when
 # they draw, not when their module is imported)
 STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
@@ -77,7 +78,8 @@ STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
                  "pipeline.merge", "models.fast", "eval.stats", "eval.plots",
                  "eval.report", "parallel.checkpoint", "interop",
                  "interop.rttov_gb", "interop.arms_gb", "cli", "cli.main",
-                 "cli.__main__")
+                 "cli.__main__", "anchors", "parallel", "parallel.mesh",
+                 "parallel.sharding", "parallel.scaling", "parallel.dryrun")
 
 _BLOCKED_IMPORTS = f"""
 import importlib, json, sys
