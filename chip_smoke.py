@@ -1,13 +1,14 @@
 """Drive the PyTorch/CUDA port's line-by-line forward, K-matrix,
 monochromatic spectral forward, primitive-rate microbenchmark with the
 kernels' bounds, fast operator, retrieval, forward stage, command line,
-multi-device splits and literature checkpoints on one GPU and check them.
+multi-device splits, literature checkpoints and tools on one GPU and check
+them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's kernels from `csrc/` and goes through
-twenty-three phases, each printing its own lines:
+twenty-four phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions,
      whether matplotlib and h5py import on the host, the
@@ -133,11 +134,30 @@ twenty-three phases, each printing its own lines:
      `cli.main(["bench"])`, each row printed with the card's name and power
      limit; (e) `dryrun_multichip(4)` on the card; (f) `run_checkpoints` for
      the nine releases with the tb rows on the card, all ok, against the
-     same call on the CPU.
+     same call on the CPU;
+ 23. the port's tools (`tools/`), each with the launch counts of its calls:
+     (a) `perf_probe.probe` at B=1024 x L=180 (the headline forward split
+     into K1, K2 and the glue, printed as its JSON line), K2 of the timed K1
+     output equal to the bit to `forward_batch`; (b) `make_golden.main`
+     into a scratch directory under build/torch_kernels/ (every checkpoint
+     row of the nine releases ok, the tb rows through K1 and K2), compared
+     with tests/golden/: absorption within 1e-9 relative, tb_standard
+     within 1e-6 K, literature.json equal; (c) `fit_tables.main` in float64:
+     the +4 % h2o_s1 retune of tests/test_golden.py recovered in 250 steps,
+     20 steps against the same on the CPU, and the per-line refit of the
+     R19 ECS-like perturbation in 900 steps, each with its wall; (d)
+     `campaign_demo.run_chain` at 520 sondes x 3 campaigns (every stage but
+     the report, which needs matplotlib: where it does not import,
+     `campaign_demo.main` is shown to stop before any work), the four
+     releases and the fast operator, with the launches of K1 and K2,
+     results.nc equal to the bit to `forward_stage` called directly on
+     harmonized.nc, each stage's wall and the summary JSON; tests/golden/
+     unchanged.
 
 It then prints one JSON line of per-kernel results (with the launches of
-the main path, of phase 20's stage call, of phase 21's CLI calls and of
-phase 22's sharded calls) and, last, one JSON line naming the device.  Any
+the main path, of phase 20's stage call, of phase 21's CLI calls, of
+phase 22's sharded calls and of phase 23's tools) and, last, one JSON line
+naming the device.  Any
 failed check raises, and the exit code is not 0.
 Without a CUDA device it exits with 1 and prints no result.
 """
@@ -165,6 +185,7 @@ REPEATS = 20
 BS, NF_SPEC, CHUNK = 32, 50_000, 8192   # the spectral shape of bench.py
 N_STAGE_TIME = 1000     # the forward-stage shape of bench.py: x 2 crops
 STAGE_MODELS = ("R98", "R17", "R20", "R24")
+N_CAMPAIGN_SONDES = 520  # the JAX tools/campaign_demo.py's archive
 
 
 def check(cond, msg):
@@ -1168,6 +1189,251 @@ def parallel_phase(dev, counted, smi, spec_profiles, f_spec, spec_tb, srf,
           f"{worst:.3e} K of the same call on the CPU (bound 1e-2), the "
           f"other rows equal")
     print(f"phase 22: launches by the sharded entry points, (d) left out: "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+
+def tools_phase(dev, counted, smi):
+    """Phase 23: the port's tools on the card, through the calls a user
+    makes: (a) `perf_probe.probe` at B=1024; (b) `make_golden.main` into a
+    scratch directory, compared with tests/golden/; (c) `fit_tables.main`
+    in float64 on the +4 % h2o_s1 retune and on the per-line ECS
+    perturbation of tests/test_golden.py; (d) `campaign_demo.run_chain` at
+    the JAX tool's 520 sondes, every stage but the report.  Returns the
+    launches of each kernel wrapper in `counted` summed over the tools'
+    calls; the references they are compared with are left out."""
+    import contextlib
+    import hashlib
+    import io
+    import tempfile
+
+    from mwr_fast_forward_operators_and_lbls_tpu_torch import anchors
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
+        H2O_MODELS, O2_MODELS)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.data import netcdf
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
+        h2o_absorption, n2_absorption, o2_absorption)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.pipeline import (
+        forward_stage)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.tools import (
+        campaign_demo, fit_tables, make_golden, perf_probe)
+
+    total = dict.fromkeys(counted, 0)
+
+    def run(fn):
+        """fn() with every count set to 0 just before it and read just
+        after: (result, launches of the kernels it reached, wall s)."""
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counted.items()}
+        for k, v in launches.items():
+            total[k] += v
+        return res, {k: v for k, v in launches.items() if v}, wall
+
+    golden = ROOT / "tests" / "golden"
+
+    def golden_digest():
+        return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                for p in sorted(golden.glob("*"))}
+
+    frozen = golden_digest()
+    scratch = ROOT / "build" / "torch_kernels"
+
+    # (a) the split of the headline forward
+    out, got, wall = run(lambda: perf_probe.probe(B))
+    per_call = 1 + perf_probe.ITERS * perf_probe.TRIALS
+    want = {"absorption_lb": 2 * per_call + 2, "forward_lb": 2 * per_call + 2}
+    print(f"phase 23: (a) perf_probe B={B} L={L} ({smi}), {wall:.1f} s: "
+          + json.dumps(out))
+    print(f"phase 23: (a) launches {got} (predicted {want}: each device_time "
+          f"call runs its function 1 + {perf_probe.ITERS} x "
+          f"{perf_probe.TRIALS} times, then K2 once on the timed K1 output "
+          f"and forward_batch once); K2 of the timed K1 output equal to the "
+          f"bit to forward_batch's tb: {out['k2_of_k1_equals_forward_batch']}")
+    check(out["k2_of_k1_equals_forward_batch"],
+          "perf_probe: K2 of K1 differs from forward_batch")
+    check(got == want, f"perf_probe launches {got}, want {want}")
+
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+
+        # (b) the goldens regenerated on the card
+        n_tb = sum(1 + ("relative_to" in cp)
+                   for model in anchors.ALL_RELEASES
+                   for cp in anchors.CHECKPOINTS
+                   if cp["kind"] == "tb" and anchors.applicable(cp, model))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, got, wall = run(lambda: make_golden.main(
+                ["--out", str(tmp / "golden")]))
+        lines = buf.getvalue().splitlines()
+        report = json.loads(lines[-1])
+        n_ok = sum(line.lstrip().startswith("[ok ]") for line in lines)
+        n_fail = sum(line.lstrip().startswith("[FAIL]") for line in lines)
+        print(f"phase 23: (b) make_golden into a scratch directory, "
+              f"{wall:.1f} s: {n_ok} checkpoint rows ok, {n_fail} failed, "
+              f"over the nine releases; launches {got} (the tb rows: "
+              f"{n_tb} forwards); against tests/golden/: {json.dumps(report)}")
+        check(rc == 0 and n_fail == 0 and n_ok > 0, f"make_golden rc {rc}, "
+              f"{n_fail} rows failed")
+        check(got == {"absorption_lb": n_tb, "forward_lb": n_tb},
+              f"make_golden launches {got}, want {n_tb} each")
+        worst = max(report["absorption_max_rel"].values())
+        check(worst <= 1e-9, f"absorption {worst} relative")
+        check(report["tb_standard_max_abs_k"] <= 1e-6,
+              f"tb_standard {report['tb_standard_max_abs_k']} K")
+        check(report["literature_equal"], "literature.json differs")
+
+        # (c) the table fits in float64 on the card
+        f = torch.tensor(make_golden.FREQS_GHZ, dtype=torch.float64,
+                         device=dev)
+        hm, om = fit_tables.apply_scales("R24", {"h2o_s1": 1.04})
+        conds = make_golden.CONDITIONS[:4]
+        alpha = {}
+        for (p, t, rho) in conds:
+            e = rho * t / 217.0
+            a = (h2o_absorption(f, p, t, rho, hm)
+                 + o2_absorption(f, p, t, rho, om)
+                 + n2_absorption(f, p - e, t, variant="R24"))
+            alpha[f"{p:g}_{t:g}_{rho:g}"] = a.cpu().numpy().tolist()
+        (tmp / "retune.json").write_text(json.dumps(
+            {"freqs_ghz": make_golden.FREQS_GHZ,
+             "conditions": [list(c) for c in conds], "alpha": alpha}))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, got, wall = run(lambda: fit_tables.main(
+                ["--golden", str(tmp / "retune.json"), "--steps", "250",
+                 "--out", str(tmp / "retune_fit.json")]))
+        res = json.loads((tmp / "retune_fit.json").read_text())
+        sc = res["scales"]
+        golden64 = json.loads((tmp / "retune.json").read_text())
+        card20 = fit_tables.fit(golden64, "R24", steps=20)
+        cpu20 = fit_tables.fit(golden64, "R24", steps=20, device="cpu")
+        d20 = max(abs(card20["scales"][k] / v - 1.0)
+                  for k, v in cpu20["scales"].items())
+        print(f"phase 23: (c) fit_tables on the card, float64, the +4 % "
+              f"h2o_s1 retune, 250 steps ({smi}): wall {wall:.3f} s; h2o_s1 "
+              f"{sc['h2o_s1']:.6f} (bounds 1.02-1.06), o2_s {sc['o2_s']:.6f} "
+              f"(0.97-1.03); rms log residual "
+              f"{res['rms_log_residual_before']:.6e} -> "
+              f"{res['rms_log_residual_after']:.6e}; launches {got}; 20 "
+              f"steps on the card against 20 on the CPU: max relative "
+              f"difference of the scales {d20:.3e} (bound 1e-8)")
+        check(res["rms_log_residual_after"]
+              < 0.3 * res["rms_log_residual_before"]
+              and 1.02 < sc["h2o_s1"] < 1.06 and 0.97 < sc["o2_s"] < 1.03,
+              f"retune not recovered: {res}")
+        check(not got, f"fit_tables launched kernels: {got}")
+        check(d20 <= 1e-8, f"card fit against CPU fit: {d20}")
+
+        base = O2_MODELS["R19"]
+        idx = np.arange(base.f.size, dtype=np.float64)
+        manifold = (base.f > 50.0) & (base.f < 120.0)
+        dy0 = 0.06 * np.max(np.abs(base.y0)) * np.sin(idx / 5.0) * manifold
+        dy1 = 0.08 * np.max(np.abs(base.y1)) * np.cos(idx / 7.0) * manifold
+        dg0 = 0.10 * max(np.max(np.abs(base.g0)), 0.01) \
+            * np.sin(idx / 6.0 + 1.0) * manifold
+        truth = dataclasses.replace(base, y0=base.y0 + dy0,
+                                    y1=base.y1 + dy1, g0=base.g0 + dg0)
+        fv = torch.tensor(np.linspace(50.0, 68.0, 120), dtype=torch.float64,
+                          device=dev)
+        conds = [(1013.0, 300.0, 5.0), (1013.0, 250.0, 1.0),
+                 (700.0, 270.0, 2.0), (400.0, 230.0, 0.2),
+                 (850.0, 285.0, 8.0)]
+        alpha = {}
+        for (p, t, rho) in conds:
+            e = rho * t / 217.0
+            a = (h2o_absorption(fv, p, t, rho, H2O_MODELS["R19"])
+                 + o2_absorption(fv, p, t, rho, truth)
+                 + n2_absorption(fv, p - e, t, variant="R19"))
+            alpha[f"{p:g}_{t:g}_{rho:g}"] = a.cpu().numpy().tolist()
+        (tmp / "ecs.json").write_text(json.dumps(
+            {"freqs_ghz": fv.cpu().numpy().tolist(),
+             "conditions": [list(c) for c in conds], "alpha": alpha}))
+        steps = 900
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, got, wall = run(lambda: fit_tables.main(
+                ["--golden", str(tmp / "ecs.json"), "--model", "R19",
+                 "--per-line", "--steps", str(steps), "--lr", "0.02",
+                 "--l2", "1e-4", "--smooth", "1e-4",
+                 "--out", str(tmp / "ecs_fit.json")]))
+        res = json.loads((tmp / "ecs_fit.json").read_text())
+        fit_y0 = np.asarray(res["deltas"]["y0"])
+        w = manifold & (np.abs(dy0) > 0.2 * np.max(np.abs(dy0)))
+        corr = float(np.corrcoef(fit_y0[w], dy0[w])[0, 1])
+        rel_l2 = float(np.linalg.norm(fit_y0[w] - dy0[w])
+                       / np.linalg.norm(dy0[w]))
+        print(f"phase 23: (c) fit_tables --per-line on the card, float64, "
+              f"the R19 ECS-like perturbation, {steps} steps ({smi}): wall "
+              f"{wall:.3f} s = {1e3 * wall / steps:.3f} ms a step; rms log "
+              f"residual {res['rms_log_residual_before']:.6e} -> "
+              f"{res['rms_log_residual_after']:.6e} (bound 1e-3 and 5 % of "
+              f"before); y0 deltas against the injected: correlation "
+              f"{corr:.4f} (bound 0.9), relative L2 {rel_l2:.4f} (bound "
+              f"0.5); launches {got}")
+        check(res["rms_log_residual_after"] < 1e-3
+              and res["rms_log_residual_after"]
+              < 0.05 * res["rms_log_residual_before"]
+              and corr > 0.9 and rel_l2 < 0.5, f"per-line refit: {corr} "
+              f"{rel_l2} {res['rms_log_residual_after']}")
+        check(not got, f"fit_tables --per-line launched kernels: {got}")
+
+        # (d) the campaign chain at the JAX tool's scale, the report left out
+        work = tmp / "campaign"
+        if importlib.util.find_spec("matplotlib") is None:
+            rc = campaign_demo.main(["--workdir", str(work)])
+            print(f"phase 23: (d) matplotlib does not import on this host: "
+                  f"campaign_demo.main returned {rc} before any work (the "
+                  f"full report draws figures); its stages but the report "
+                  f"follow, through campaign_demo.run_chain")
+            check(rc == 2 and not work.exists(),
+                  f"campaign_demo without matplotlib: rc {rc}")
+        n_sondes = N_CAMPAIGN_SONDES
+        timings = {}
+        (ds, dims, params), got, wall = run(lambda: campaign_demo.run_chain(
+            str(work), n_sondes, STAGE_MODELS, None, timings))
+        timings["total_s"] = wall
+        chunks = 2 * -(-dims["time"] // 256)
+        want = {"absorption_lb": len(STAGE_MODELS) * chunks + 1,
+                "forward_lb": (len(STAGE_MODELS) + 1) * chunks}
+        summary = {"n_sondes_requested": n_sondes, "dims": dims,
+                   "backend": torch.cuda.get_device_name(dev),
+                   "models": list(STAGE_MODELS) + ["Fast"],
+                   "n_forward_spectra": campaign_demo.n_spectra(
+                       dims, STAGE_MODELS),
+                   "timings_s": timings}
+        print(f"phase 23: (d) campaign_demo.run_chain, {n_sondes} sondes, "
+              f"{STAGE_MODELS} + fast, every stage but the report ({smi}): "
+              f"launches {got} (predicted {want}: {chunks} chunks of 256 "
+              f"over {dims['time']} times x 2 crops, K1 once more for the "
+              f"fit); stage walls: " + "; ".join(
+                  f"{k} {v:.4f}" for k, v in timings.items()))
+        print("phase 23: (d) summary " + json.dumps(summary))
+        check(got == want, f"campaign launches {got}, want {want}")
+        harm = netcdf.read(str(work / "harmonized.nc"))
+        direct = stage_outputs(forward_stage(harm, STAGE_MODELS, params))
+        results = stage_outputs(netcdf.read(str(work / "results.nc")))
+        bad = [k for k, v in direct.items() if not same_data(v, results[k])]
+        check(set(results) == set(direct) and not bad,
+              f"results.nc differs from forward_stage: {bad}")
+        check(all(np.isfinite(v).all() for v in results.values())
+              and results["TBs_LBL_R24"].shape == (dims["time"], 14, 10, 2),
+              "campaign results not finite or of another shape")
+        check("Deviations_Fast_R24" in ds and "cloud_flag" in ds,
+              "analysis dataset")
+        print(f"phase 23: (d) results.nc: {sorted(results)} each equal to "
+              f"the bit to forward_stage called directly on harmonized.nc "
+              f"with the chain's weights; finite; analysis.nc "
+              f"{len(ds.variables)} variables")
+    check(golden_digest() == frozen, "tests/golden/ changed")
+    print(f"phase 23: tests/golden/ unchanged ({len(frozen)} files); "
+          f"launches by the tools: "
           f"{ {k: v for k, v in total.items() if v} }")
     return total
 
@@ -2392,6 +2658,9 @@ def main() -> int:
     parallel_launches = parallel_phase(dev, counted, smi, spec_profiles,
                                        f_spec, spec["tb"], srf, tb_srf)
 
+    # ---- phase 23: the tools -----------------------------------------------
+    tools_launches = tools_phase(dev, counted, smi)
+
     kernel_rows = [
         {"name": "absorption_lb", "route": "cuda",
          "source": f"{PKG}/csrc/absorption.cu",
@@ -2455,6 +2724,7 @@ def main() -> int:
         row["launches_forward_stage"] = stage_launches[row["name"]]
         row["launches_cli"] = cli_launches[row["name"]]
         row["launches_parallel"] = parallel_launches[row["name"]]
+        row["launches_tools"] = tools_launches[row["name"]]
     kernel_rows[1].update(
         launches_fast_path=fast_launches["forward_lb"], body=main_body,
         alpha_is_mid_ms=k2_mid_ms, alpha_is_mid_plain_ms=k2_mid_plain_ms,

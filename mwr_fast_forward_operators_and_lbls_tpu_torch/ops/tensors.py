@@ -32,6 +32,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def device_name(device: torch.device) -> str:
+    """The card's name (`torch.cuda.get_device_name`), or the device's type
+    off the card."""
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+
+
 def input_device(x) -> torch.device:
     """The device an entry point works on, from one of its inputs: a tensor
     stays where it is (that is the caller asking, a CPU tensor for the

@@ -41,12 +41,24 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
+# jax, the JAX package, and the repo's root `tools/`, which imports both
+FORBIDDEN = ("jax", "jaxlib", JAX_PKG, "tools")
+
+
 @pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT_DIR)))
 def test_port_sources_import_no_jax(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", JAX_PKG), f"{path}: imports {name}"
+        assert top not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_chip_smoke_imports_no_jax():
+    path = REPO / "chip_smoke.py"
+    names = list(_imported_modules(path))
+    assert port.__name__ in {n.split(".")[0] for n in names}
+    for name in names:
+        assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -66,10 +78,10 @@ def test_importing_the_port_loads_no_jax():
 
 
 # the modules of the data layer, the forward stage, the evaluation layer,
-# interop, checkpointing, the command line, the anchors and the multi-device
-# layer, each imported with jax, the
-# JAX package and matplotlib blocked (the figures import matplotlib when
-# they draw, not when their module is imported)
+# interop, checkpointing, the command line, the anchors, the multi-device
+# layer and the tools, each imported with jax, the JAX package, the root
+# `tools/` and matplotlib blocked (the figures import matplotlib when they
+# draw, not when their module is imported)
 STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
                  "data.dataset", "data.netcdf", "data.synthetic",
                  "data.radiosonde", "data.mwr", "data.cloud",
@@ -79,13 +91,15 @@ STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
                  "eval.report", "parallel.checkpoint", "interop",
                  "interop.rttov_gb", "interop.arms_gb", "cli", "cli.main",
                  "cli.__main__", "anchors", "parallel", "parallel.mesh",
-                 "parallel.sharding", "parallel.scaling", "parallel.dryrun")
+                 "parallel.sharding", "parallel.scaling", "parallel.dryrun",
+                 "tools", "tools.campaign_demo", "tools.perf_probe",
+                 "tools.make_golden", "tools.fit_tables")
 
 _BLOCKED_IMPORTS = f"""
 import importlib, json, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib', '{JAX_PKG}',
+        if name.split('.')[0] in ('jax', 'jaxlib', '{JAX_PKG}', 'tools',
                                   'matplotlib'):
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
@@ -99,7 +113,7 @@ for name in sys.argv[1:]:
     except Exception as exc:
         result[name] = repr(exc)
 bad = sorted(k for k in sys.modules if k.split('.')[0] in
-             ('jax', 'jaxlib', '{JAX_PKG}', 'matplotlib'))
+             ('jax', 'jaxlib', '{JAX_PKG}', 'tools', 'matplotlib'))
 sys.argv[1:] = ['--device', 'cpu', 'config']
 try:
     importlib.import_module('{port.__name__}.cli.__main__')
@@ -155,6 +169,8 @@ def test_port_imports_from_a_directory_that_holds_nothing_else(tmp_path):
             f"from {port.__name__}.interop import arms_gb, rttov_gb; "
             f"from {port.__name__}.parallel import checkpoint; "
             f"from {port.__name__}.cli import main; "
+            f"from {port.__name__}.tools import campaign_demo, fit_tables, "
+            f"make_golden, perf_probe; "
             f"here = pathlib.Path.cwd().resolve(); "
             f"assert pathlib.Path(m.__file__).resolve().is_relative_to(here);"
             f" assert pathlib.Path(hatpro.__file__).resolve()"
