@@ -1,14 +1,14 @@
 """Drive the PyTorch/CUDA port's line-by-line forward, K-matrix,
 monochromatic spectral forward, primitive-rate microbenchmark with the
 kernels' bounds, fast operator, retrieval, forward stage, command line,
-multi-device splits, literature checkpoints and tools on one GPU and check
-them.
+multi-device splits, literature checkpoints, tools and bench on one GPU
+and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's kernels from `csrc/` and goes through
-twenty-four phases, each printing its own lines:
+twenty-five phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions,
      whether matplotlib and h5py import on the host, the
@@ -152,12 +152,21 @@ twenty-four phases, each printing its own lines:
      releases and the fast operator, with the launches of K1 and K2,
      results.nc equal to the bit to `forward_stage` called directly on
      harmonized.nc, each stage's wall and the summary JSON; tests/golden/
-     unchanged.
+     unchanged;
+ 24. the port's bench (`python -m ...bench`, bench.py's seven
+     measurements): (a) `--quick` in a process of its own, its line with
+     bench.py's top keys; (b) the full bench in this process at bench.py's
+     sizes, its JSON line printed: its keys those of bench.py (read from
+     its text) plus `device` and `power_limit_w` (equal to nvidia-smi's),
+     every number finite and > 0, every `*_roofline_frac` at most 1, the
+     launches of each kernel as predicted from the bench's timing table,
+     and each timed call's output equal to the bit to its entry point
+     called directly on the same inputs.
 
 It then prints one JSON line of per-kernel results (with the launches of
 the main path, of phase 20's stage call, of phase 21's CLI calls, of
-phase 22's sharded calls and of phase 23's tools) and, last, one JSON line
-naming the device.  Any
+phase 22's sharded calls, of phase 23's tools and of phase 24's bench)
+and, last, one JSON line naming the device.  Any
 failed check raises, and the exit code is not 0.
 Without a CUDA device it exits with 1 and prints no result.
 """
@@ -1438,6 +1447,235 @@ def tools_phase(dev, counted, smi):
     return total
 
 
+def bench_py_keys():
+    """The root bench.py's JSON keys, read from its text: the top keys, the
+    keys of `extra`, and the keys of its two decompositions."""
+    import ast
+
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    top, extra, decomp = set(), set(), {}
+    for fn in (n for n in tree.body if isinstance(n, ast.FunctionDef)):
+        for node in ast.walk(fn):
+            if (isinstance(node, ast.Assign)
+                    and isinstance(node.targets[0], ast.Name)
+                    and isinstance(node.value, ast.Dict)):
+                keys = {k.value for k in node.value.keys}
+                if node.targets[0].id == "result":
+                    top |= keys
+                elif node.targets[0].id == "decomp":
+                    decomp[fn.name] = keys
+            elif (isinstance(node, ast.Subscript)
+                  and isinstance(node.value, ast.Name)
+                  and isinstance(node.slice, ast.Constant)
+                  and isinstance(node.ctx, ast.Store)):
+                if node.value.id == "result":
+                    top.add(node.slice.value)
+                elif node.value.id == "extra":
+                    extra.add(node.slice.value)
+    return top, extra, {"spectral_decomp_ms": decomp["bench_spectral"],
+                        "kmatrix_decomp_ms": decomp["bench_kmatrix"]}
+
+
+def bench_phase(dev, counted, smi):
+    """Phase 24: the port's bench.  (a) `python -m ...bench --quick` in a
+    process of its own; (b) the full bench in this process at bench.py's
+    sizes, its line against bench.py's keys, every timed output against its
+    entry point called directly on the same inputs, and the launches it
+    made.  Returns those launches of each kernel wrapper in `counted`."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch import bench
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.data import preprocess
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+        fast, jacobians, lbl, retrieval, spectral)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (  # noqa: E501
+        absorption_tangents_lb)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
+        downwelling_lb)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (  # noqa: E501
+        absorption_spectral)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.pipeline import (
+        forward as fwd)
+
+    top, extra_keys, decomp = bench_py_keys()
+
+    # (a) --quick in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench", "--quick"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"bench --quick exit {proc.returncode}: {proc.stderr[-2000:]}")
+    quick = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase 24: (a) python -m {PKG}.bench --quick, {wall:.1f} s "
+          f"({smi}): {json.dumps(quick)}")
+    check(set(quick) == top - {"extra"}, f"--quick keys {sorted(quick)}")
+
+    # (b) the full bench in this process
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    result, runs = bench.measure()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counted.items()}
+    print(f"phase 24: (b) bench.measure() at bench.py's sizes, {wall:.1f} s "
+          f"({smi}): {json.dumps(result)}")
+    extra = result["extra"]
+    check(set(result) == top, f"bench keys {sorted(result)}")
+    check(set(extra) == extra_keys | {"device", "power_limit_w"},
+          f"extra keys {sorted(extra)}")
+    for name, keys in decomp.items():
+        check(set(extra[name]) == keys, f"{name} keys {sorted(extra[name])}")
+    name, limit = (s.strip() for s in smi.rsplit(",", 1))
+    check(extra["device"] == name
+          and extra["power_limit_w"] == float(limit.split()[0]),
+          f"device {extra['device']} {extra['power_limit_w']}, smi {smi}")
+
+    def flat(tree, prefix=""):
+        """The line's numbers (and nulls) by dotted key; the text keys
+        left out."""
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}.")
+            elif k not in ("metric", "unit", "device", "note"):
+                yield prefix + k, v
+
+    numbers = dict(flat(result))
+    bad = {k: v for k, v in numbers.items()
+           if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0)}
+    check(not bad, f"bench numbers not finite and > 0: {bad}")
+    over = {k: v for k, v in numbers.items()
+            if k.endswith("_roofline_frac") and v > 1.0}
+    check(not over, f"a time under its bound: {over}")
+
+    def calls(which):
+        iters, trials = bench.TIMING[which]
+        return 1 + iters * trials
+
+    spec_chunks = -(-bench.N_FREQS // bench.FREQ_CHUNK)
+    stage_chunks = -(-bench.N_STAGE_TIME // bench.STAGE_BATCH)
+    stage_calls = 4 * 2 * stage_chunks       # 2 payloads x (warm, timed)
+    n_iter = runs["retrieval"].inputs["config"].n_iter
+    want = {
+        # headline, forward at B=256, distillation targets and fit, the
+        # serving and retrieval fits, the stage, crop 0's chunk loop
+        "absorption_lb": (calls("headline") + calls("forward_256") + 2 + 1
+                          + 1 + stage_calls
+                          + calls("stage_device") * stage_chunks),
+        # the same but the fits, serving, the retrieval's observations and
+        # its n_iter + 1 forwards a call
+        "forward_lb": (calls("headline") + calls("forward_256") + 1
+                       + calls("serving") + 1
+                       + calls("retrieval") * (n_iter + 1) + stage_calls
+                       + calls("stage_device") * stage_chunks),
+        "absorption_tangents_lb": calls("kmatrix") + calls("kmatrix_parts"),
+        "kmatrix_assembled_lb": calls("kmatrix") + calls("kmatrix_parts"),
+        "kmatrix_assembled_rho_lwc_lb": calls("kmatrix"),
+        "absorption_spectral": (calls("spectral") * spec_chunks
+                                + 2 * calls("spectral_parts")),
+        "downwelling_lb": (calls("spectral") * spec_chunks
+                           + calls("spectral_parts")),
+        "chain": 0}
+    print(f"phase 24: (b) launches_bench {launches} (predicted {want})")
+    check(launches == want, f"bench launches {launches}, want {want}")
+
+    # each timed output against its entry point called directly
+    same = {}
+
+    def equal(what, a, b):
+        same[what] = bool(torch.equal(a, b))
+
+    run = runs["headline"]
+    equal("forward_batch", run.out["tb"], lbl.forward_batch(
+        run.inputs["profiles"], run.inputs["config"])["tb"])
+
+    run, inp = runs["spectral"], runs["spectral"].inputs
+    whole = spectral.forward_spectral(
+        inp["profiles"], inp["f_ghz"], inp["elevations_deg"], "R24",
+        freq_chunk=bench.FREQ_CHUNK)
+    equal("forward_spectral + srf_convolve", run.out["tb_srf"],
+          spectral.srf_convolve(whole["tb"], inp["weights"]))
+    lev = inp["levels"]
+    equal("K6 alone", run.out["alpha"], absorption_spectral(
+        inp["f_chunk"], lev["p"], lev["t"], lev["rho"], lev["lwc"], "R24"))
+    chunk = downwelling_lb(inp["f_chunk"], run.out["alpha"], inp["ds"],
+                           lev["t"])
+    for k in ("tb", "tau_total"):
+        equal(f"chunk {k} = K3 of the timed K6", run.out["chunk"][k],
+              chunk[k])
+        equal(f"chunk {k} = the spectrum's first chunk",
+              run.out["chunk"][k].permute(2, 0, 1),
+              whole[k][..., :bench.FREQ_CHUNK])
+
+    run, inp = runs["kmatrix"], runs["kmatrix"].inputs
+    k = jacobians.kmatrix_batch_fast(inp["profiles"], inp["config"],
+                                     inp["wrt"])
+    for n in inp["wrt"]:
+        equal(f"kmatrix_batch_fast {n}", run.out["k"][n], k[n])
+    equal("forward_batch B=256", run.out["tb"], lbl.forward_batch(
+        inp["profiles"], inp["forward_config"])["tb"])
+    for i, a in enumerate(absorption_tangents_lb(
+            inp["config"].freqs_ghz, *inp["tangent_args"],
+            inp["config"].model)):
+        equal(f"K4 alone [{i}]", run.out["tangents"][i], a)
+    equal("K5a alone = the K-matrix's k_t",
+          run.out["k_t_lb"].permute(3, 0, 1, 2), k["t"])
+
+    run, inp = runs["distill"], runs["distill"].inputs
+    params = {"w": inp["w0"].clone()}
+    optimizer = fast.make_optimizer(params)
+    for _ in range(run.out["steps"]):
+        loss = fast.train_step(params, optimizer, inp["profiles"],
+                               inp["targets"], inp["config"])
+    equal(f"train_step x {run.out['steps']}: loss", run.out["loss"], loss)
+    equal(f"train_step x {run.out['steps']}: w", run.out["w"],
+          params["w"].detach())
+
+    run, inp = runs["serving"], runs["serving"].inputs
+    res = fast.fast_forward_batch(inp["params"], inp["profiles"],
+                                  inp["config"])
+    for n in ("tb", "tau_total"):
+        equal(f"fast_forward_batch {n}", run.out[n], res[n])
+
+    run, inp = runs["retrieval"], runs["retrieval"].inputs
+    res = retrieval.retrieve_batch(
+        inp["params"], inp["tb_obs"], inp["z"], inp["p"], inp["t_prior"],
+        inp["rho_prior"], inp["config"], inp["lwc"])
+    for n in ("t", "rho"):
+        equal(f"retrieve_batch {n}", run.out[n], res[n])
+    check(all(bool(torch.isfinite(v).all()) for v in run.out.values()),
+          "retrieval not finite")
+
+    run = runs["stage"]
+    ds, cfg = run.inputs["dataset"], lbl.LBLConfig(outputs=("tb",))
+    for key, compress in (("stage", False), ("stage_f16", True)):
+        got = run.out[key]["TBs_LBL_R24"]
+        direct = np.empty_like(got)
+        for crop in (0, 1):
+            prof, ref = fwd._upload(fwd._screen(
+                preprocess.profiles_for_forward(ds, crop=crop))[0],
+                compress, dev)
+            if ref is not None:
+                prof = {k: v.float() + ref[k][None, :]
+                        for k, v in prof.items()}
+            for s in range(0, bench.N_STAGE_TIME, bench.STAGE_BATCH):
+                tb = lbl.forward_batch(
+                    {k: v[s:s + bench.STAGE_BATCH] for k, v in prof.items()},
+                    cfg)["tb"]
+                direct[s:s + bench.STAGE_BATCH, ..., crop] = (
+                    tb.permute(0, 2, 1).cpu().numpy())
+        equal(f"forward_stage ({key}) = forward_batch a chunk",
+              torch.from_numpy(got), torch.from_numpy(direct))
+    equal("crop 0's chunk loop = the stage's crop 0",
+          run.out["device"]["R24"].cpu(),
+          torch.from_numpy(run.out["stage"]["TBs_LBL_R24"][..., 0]))
+    print(f"phase 24: (b) each timed output equal to the bit to its entry "
+          f"point called directly on the same inputs: {same}")
+    check(all(same.values()), f"bench outputs differ: "
+          f"{[k for k, v in same.items() if not v]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2661,6 +2899,9 @@ def main() -> int:
     # ---- phase 23: the tools -----------------------------------------------
     tools_launches = tools_phase(dev, counted, smi)
 
+    # ---- phase 24: the bench -----------------------------------------------
+    bench_launches = bench_phase(dev, counted, smi)
+
     kernel_rows = [
         {"name": "absorption_lb", "route": "cuda",
          "source": f"{PKG}/csrc/absorption.cu",
@@ -2725,6 +2966,7 @@ def main() -> int:
         row["launches_cli"] = cli_launches[row["name"]]
         row["launches_parallel"] = parallel_launches[row["name"]]
         row["launches_tools"] = tools_launches[row["name"]]
+        row["launches_bench"] = bench_launches[row["name"]]
     kernel_rows[1].update(
         launches_fast_path=fast_launches["forward_lb"], body=main_body,
         alpha_is_mid_ms=k2_mid_ms, alpha_is_mid_plain_ms=k2_mid_plain_ms,

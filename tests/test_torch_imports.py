@@ -79,9 +79,9 @@ def test_importing_the_port_loads_no_jax():
 
 # the modules of the data layer, the forward stage, the evaluation layer,
 # interop, checkpointing, the command line, the anchors, the multi-device
-# layer and the tools, each imported with jax, the JAX package, the root
-# `tools/` and matplotlib blocked (the figures import matplotlib when they
-# draw, not when their module is imported)
+# layer, the tools and the bench, each imported with jax, the JAX package,
+# the root `tools/` and matplotlib blocked (the figures import matplotlib
+# when they draw, not when their module is imported)
 STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
                  "data.dataset", "data.netcdf", "data.synthetic",
                  "data.radiosonde", "data.mwr", "data.cloud",
@@ -93,7 +93,7 @@ STAGE_MODULES = ("utils", "utils.times", "utils.geo", "utils.native", "data",
                  "cli.__main__", "anchors", "parallel", "parallel.mesh",
                  "parallel.sharding", "parallel.scaling", "parallel.dryrun",
                  "tools", "tools.campaign_demo", "tools.perf_probe",
-                 "tools.make_golden", "tools.fit_tables")
+                 "tools.make_golden", "tools.fit_tables", "bench")
 
 _BLOCKED_IMPORTS = f"""
 import importlib, json, sys
@@ -141,6 +141,21 @@ def test_stage_module_imports_with_jax_blocked(blocked_imports, name):
     assert blocked_imports["loaded"] == []
 
 
+@pytest.mark.parametrize("name", ["BASELINE_SPECTRA_PER_S", "N_STAGE_TIME"])
+def test_bench_constants_equal_the_root_bench(name):
+    """The port's bench keeps its own copy of the root bench.py's
+    constants (bench.py imports jax)."""
+    import importlib.util
+
+    from mwr_fast_forward_operators_and_lbls_tpu_torch import bench
+
+    spec = importlib.util.spec_from_file_location("root_bench",
+                                                  REPO / "bench.py")
+    root_bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_bench)
+    assert getattr(bench, name) == getattr(root_bench, name)
+
+
 TABLE_MODULES = ("physics", "hatpro", "h2o_lines", "o2_lines", "o3_lines",
                  "afgl")
 
@@ -171,6 +186,7 @@ def test_port_imports_from_a_directory_that_holds_nothing_else(tmp_path):
             f"from {port.__name__}.cli import main; "
             f"from {port.__name__}.tools import campaign_demo, fit_tables, "
             f"make_golden, perf_probe; "
+            f"from {port.__name__} import bench; "
             f"here = pathlib.Path.cwd().resolve(); "
             f"assert pathlib.Path(m.__file__).resolve().is_relative_to(here);"
             f" assert pathlib.Path(hatpro.__file__).resolve()"
