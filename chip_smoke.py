@@ -266,6 +266,30 @@ def k_error(got, ref):
                   / torch.clamp_min(ref.abs(), floor)).max())
 
 
+def device_profile(fn, calls: int = 5, n_top: int = 6):
+    """(device ms per call, device kernels and copies per call, the `n_top`
+    largest as (name, launches per call, ms per call)), from a
+    `torch.profiler` trace of `calls` calls."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = getattr(event, "self_cuda_time_total", 0.0)
+        rows.append((event.key[:48], event.count / calls, us * 1e-3 / calls))
+    rows.sort(key=lambda r: -r[2])
+    return (sum(r[2] for r in rows), sum(r[1] for r in rows), rows[:n_top])
+
+
 def peak_mib(fn):
     """Peak device memory [MiB] that fn() allocates above what is live
     before it."""
@@ -448,8 +472,6 @@ def forward_stage_phase(dev, fb_rate, counted):
     from mwr_fast_forward_operators_and_lbls_tpu_torch.data import preprocess
     from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
         fast, jacobians, lbl)
-    from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
-        path_times)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.pipeline import (
         forward as fwd)
 
@@ -588,7 +610,7 @@ def forward_stage_phase(dev, fb_rate, counted):
         v.cpu()
     t_pull_pageable = time.perf_counter() - t0
     del res, ups
-    device_ms, n_kernels, top = path_times.device_profile(stage, 1, 4)
+    device_ms, n_kernels, top = device_profile(stage, 1, 4)
     peak = peak_mib(stage)
     host_bytes = {k: v.nbytes for k, v in out.items()}
     spectra = n * 2 * len(lbl.LBLConfig().elevations_deg)
@@ -1693,7 +1715,7 @@ def main() -> int:
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
         OPS as CHAIN_OPS, chain, chain_reference)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
-        path_times, profiling)
+        profiling)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
         absorption as k1_mod)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (  # noqa: E501
@@ -2852,7 +2874,7 @@ def main() -> int:
                 kprofiles, cfg_k, wrt=WRT), 5, kmat_ms)):
         if ms is None:
             ms = timed_ms(fn, repeats=5, warmup=1)
-        device_ms, n_kernels, top = path_times.device_profile(fn, calls, 4)
+        device_ms, n_kernels, top = device_profile(fn, calls, 4)
         n_kernels = round(n_kernels)
         if device_ms == 0.0:
             print(f"phase 19: {what}: the profiler saw no device time: idle "

@@ -41,6 +41,7 @@ from ..ops.cuda.absorption import (absorption_partials_lb,
 from ..ops.cuda.adjoint import (kmatrix_assembled_lb,
                                 kmatrix_assembled_reference,
                                 kmatrix_assembled_rho_lwc_lb)
+from ..ops.spans import span
 from . import fast as fast_mod
 from . import lbl
 from .lbl import LBLConfig
@@ -99,26 +100,31 @@ def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
     `tables` is the packed line table of K4 (`line_tables(model, False,
     device)`), built and cached when None.
     """
-    lev = lbl.level_major_profiles(profiles, config)
-    on_card = lev["t"].is_cuda and config.use_kernels
-    if on_card and lev["t"].dtype != torch.float32:
-        raise ValueError(f"the CUDA kernels are float32 only; got dtype "
-                         f"{config.dtype!r} (use_kernels=False runs the plain "
-                         f"closed form in any dtype)")
-    if fused is None:
-        fused = on_card and set(wrt) <= LANES_WRT
-    if fused:
-        if not set(wrt) <= LANES_WRT:
-            raise ValueError(f"the fused K-matrix takes wrt within "
-                             f"{sorted(LANES_WRT)}, got {wrt}")
-        if not config.use_kernels:
-            raise ValueError("the fused K-matrix runs the kernels' wrappers; "
-                             "use_kernels=False takes the plain closed form")
-        k = _kmatrix_batch_fused_lanes(lev, config, wrt, tables)
-    else:
-        k = _kmatrix_batch_closed_form(lev, config, wrt)
-    # (E, F, L, B) -> the public (B, E, F, L)
-    return {name: k[name].permute(3, 0, 1, 2).contiguous() for name in wrt}
+    with span("kmatrix.kmatrix_batch_fast"):
+        with span("kmatrix.layout"):
+            lev = lbl.level_major_profiles(profiles, config)
+        on_card = lev["t"].is_cuda and config.use_kernels
+        if on_card and lev["t"].dtype != torch.float32:
+            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
+                             f"{config.dtype!r} (use_kernels=False runs the "
+                             f"plain closed form in any dtype)")
+        if fused is None:
+            fused = on_card and set(wrt) <= LANES_WRT
+        if fused:
+            if not set(wrt) <= LANES_WRT:
+                raise ValueError(f"the fused K-matrix takes wrt within "
+                                 f"{sorted(LANES_WRT)}, got {wrt}")
+            if not config.use_kernels:
+                raise ValueError("the fused K-matrix runs the kernels' "
+                                 "wrappers; use_kernels=False takes the plain "
+                                 "closed form")
+            k = _kmatrix_batch_fused_lanes(lev, config, wrt, tables)
+        else:
+            k = _kmatrix_batch_closed_form(lev, config, wrt)
+        # (E, F, L, B) -> the public (B, E, F, L)
+        with span("kmatrix.output_layout"):
+            return {name: k[name].permute(3, 0, 1, 2).contiguous()
+                    for name in wrt}
 
 
 def _dalpha_dlwc(config: LBLConfig, t):
@@ -179,8 +185,10 @@ def _kmatrix_batch_fused_lanes(lev: dict, config: LBLConfig, wrt, tables):
         tables=tables)
     da = {"t": da_t, "rho": da_rho}
     if "lwc" in wrt:
-        da["lwc"] = _dalpha_dlwc(config, t)
-    g = _slant_geometry(lev, config, [n for n in wrt if n != "lwc"])
+        with span("kmatrix.dalpha_dlwc"):
+            da["lwc"] = _dalpha_dlwc(config, t)
+    with span("kmatrix.slant_geometry"):
+        g = _slant_geometry(lev, config, [n for n in wrt if n != "lwc"])
     geo = (g["dds_dnl"], g["dds_dk"])
     if set(wrt) == LANES_WRT:
         k_t = kmatrix_assembled_lb(freqs, "t", alpha, da["t"], g["ds"], t,
@@ -206,8 +214,10 @@ def _kmatrix_batch_closed_form(lev: dict, config: LBLConfig, wrt) -> dict:
                                        lev["rho"], lev["lwc"], config.model,
                                        geo_wrt)
     if "lwc" in wrt:
-        da["lwc"] = _dalpha_dlwc(config, lev["t"])
-    g = _slant_geometry(lev, config, geo_wrt)
+        with span("kmatrix.dalpha_dlwc"):
+            da["lwc"] = _dalpha_dlwc(config, lev["t"])
+    with span("kmatrix.slant_geometry"):
+        g = _slant_geometry(lev, config, geo_wrt)
     return kmatrix_assembled_reference(
         config.freqs_ghz, alpha, {n: da[n] for n in wrt}, g["ds"], lev["t"],
         g["dds_dnl"], g["dds_dk"], g["dn"], g["r0cos"])

@@ -25,6 +25,7 @@ from ..ops.absorption import total_absorption
 from ..ops.cuda.absorption import (absorption_lb, absorption_lb_reference,
                                    line_tables)
 from ..ops.cuda.rte import forward_lb, forward_lb_reference
+from ..ops.spans import span
 from ..ops.tensors import input_device, resolve_device
 
 
@@ -123,34 +124,40 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
     Returns the outputs named in `config.outputs`: tb, tau_total, t_mr
     (B, E, F) and trans_level (B, E, F, L).
     """
-    dtype = getattr(torch, config.dtype)
-    device = input_device(profiles["p"])
-    if config.use_kernels and device.type == "cuda" and dtype != torch.float32:
-        raise ValueError(f"the CUDA kernels are float32 only; got dtype "
-                         f"{config.dtype!r} (use_kernels=False runs the plain "
-                         f"torch path in any dtype)")
-    z, p, t, rho, lwc = level_major_profiles(profiles, config).values()
-    o3 = None
-    if config.include_o3:
-        o3 = profiles.get("o3_ppmv")
-        o3 = (_afgl_o3(z) if o3 is None
-              else torch.as_tensor(o3).to(z).T.contiguous())
+    with span("lbl.forward_batch"):
+        dtype = getattr(torch, config.dtype)
+        device = input_device(profiles["p"])
+        if (config.use_kernels and device.type == "cuda"
+                and dtype != torch.float32):
+            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
+                             f"{config.dtype!r} (use_kernels=False runs the "
+                             f"plain torch path in any dtype)")
+        with span("lbl.layout"):
+            z, p, t, rho, lwc = level_major_profiles(profiles,
+                                                     config).values()
+            o3 = None
+            if config.include_o3:
+                o3 = profiles.get("o3_ppmv")
+                o3 = (_afgl_o3(z) if o3 is None
+                      else torch.as_tensor(o3).to(z).T.contiguous())
 
-    want_trans = "trans_level" in config.outputs
-    if config.use_kernels:
-        alpha = absorption_lb(config.freqs_ghz, p, t, rho, lwc, config.model,
-                              o3=o3, tables=tables)
-    else:
-        alpha = absorption_lb_reference(config.freqs_ghz, p, t, rho, lwc,
-                                        config.model, o3=o3)
-    n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
-    rte_fn = forward_lb if config.use_kernels else forward_lb_reference
-    stacked = rte_fn(config.freqs_ghz, config.elevations_deg, alpha, z, n, t,
-                     want_trans_level=want_trans)
-    # back to the public (B, E, F[, L]) layout
-    return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"
-                else v.permute(2, 0, 1)).contiguous()
-            for k, v in stacked.items() if k in config.outputs}
+        want_trans = "trans_level" in config.outputs
+        if config.use_kernels:
+            alpha = absorption_lb(config.freqs_ghz, p, t, rho, lwc,
+                                  config.model, o3=o3, tables=tables)
+        else:
+            alpha = absorption_lb_reference(config.freqs_ghz, p, t, rho, lwc,
+                                            config.model, o3=o3)
+        with span("lbl.refractive_index"):
+            n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
+        rte_fn = forward_lb if config.use_kernels else forward_lb_reference
+        stacked = rte_fn(config.freqs_ghz, config.elevations_deg, alpha, z, n,
+                         t, want_trans_level=want_trans)
+        # back to the public (B, E, F[, L]) layout
+        with span("lbl.output_layout"):
+            return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"
+                        else v.permute(2, 0, 1)).contiguous()
+                    for k, v in stacked.items() if k in config.outputs}
 
 
 def forward_all_models(profiles: dict, config: LBLConfig = LBLConfig(),

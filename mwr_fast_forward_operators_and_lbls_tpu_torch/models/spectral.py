@@ -21,6 +21,7 @@ from ..ops import geometry, rte, thermo
 from ..ops.cuda.rte import downwelling_lb, downwelling_lb_reference
 from ..ops.cuda.spectral import (absorption_spectral,
                                  absorption_spectral_reference)
+from ..ops.spans import span
 from ..ops.tensors import input_device
 from .lbl import LBLConfig, level_major_profiles
 
@@ -83,26 +84,32 @@ def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
         raise ValueError(f"the CUDA kernels are float32 only; got {dtype} "
                          f"(use_kernels=False runs the plain torch path in "
                          f"any dtype)")
-    levels = level_major_profiles(
-        profiles, LBLConfig(dtype=str(dtype).removeprefix("torch.")))
-    z, p, t, rho = (levels[k] for k in ("z", "p", "t", "rho"))
-    f = (f_ghz if torch.is_tensor(f_ghz)
-         else torch.from_numpy(np.asarray(f_ghz, np.float32)))
-    f = f.to(device=p.device, dtype=torch.float32).to(dtype).reshape(-1)
-    e_hpa = thermo.rho_to_e(rho, t)
-    ds = torch.stack([geometry.slant_path_lengths_lb(z, p, t, e_hpa, el)
-                      for el in elevations_deg])             # (E, L-1, B)
+    with span("spectral.forward_spectral"):
+        with span("spectral.layout"):
+            levels = level_major_profiles(
+                profiles, LBLConfig(dtype=str(dtype).removeprefix("torch.")))
+            z, p, t, rho = (levels[k] for k in ("z", "p", "t", "rho"))
+            f = (f_ghz if torch.is_tensor(f_ghz)
+                 else torch.from_numpy(np.asarray(f_ghz, np.float32)))
+            f = f.to(device=p.device, dtype=torch.float32).to(dtype)
+            f = f.reshape(-1)
+        with span("spectral.slant_geometry"):
+            e_hpa = thermo.rho_to_e(rho, t)
+            ds = torch.stack([
+                geometry.slant_path_lengths_lb(z, p, t, e_hpa, el)
+                for el in elevations_deg])                   # (E, L-1, B)
 
-    n_lev, batch = p.shape
-    nf, chunk = f.numel(), max(1, int(freq_chunk))
-    out = {k: torch.empty((batch, len(elevations_deg), nf), dtype=dtype,
-                          device=p.device) for k in ("tb", "tau_total")}
-    for s in range(0, nf, chunk):
-        stacked = _forward_chunk(levels, f[s:s + chunk], ds, model,
-                                 use_kernels)
-        for k, v in out.items():
-            v[:, :, s:s + chunk] = stacked[k].permute(2, 0, 1)
-    return out
+        n_lev, batch = p.shape
+        nf, chunk = f.numel(), max(1, int(freq_chunk))
+        out = {k: torch.empty((batch, len(elevations_deg), nf), dtype=dtype,
+                              device=p.device) for k in ("tb", "tau_total")}
+        for s in range(0, nf, chunk):
+            with span("spectral.chunk"):
+                stacked = _forward_chunk(levels, f[s:s + chunk], ds, model,
+                                         use_kernels)
+                for k, v in out.items():
+                    v[:, :, s:s + chunk] = stacked[k].permute(2, 0, 1)
+        return out
 
 
 def srf_convolve(tb_mono, weights):
@@ -113,7 +120,8 @@ def srf_convolve(tb_mono, weights):
     as exact as the JAX package's Precision.HIGHEST, and never TF32 whatever
     the global matmul setting.  It is a few MFLOP for a 50k spectrum.
     """
-    w = torch.as_tensor(weights).to(device=tb_mono.device,
-                                    dtype=torch.float64)
-    w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-30)
-    return torch.matmul(tb_mono.double(), w.T).to(tb_mono.dtype)
+    with span("spectral.srf_convolve"):
+        w = torch.as_tensor(weights).to(device=tb_mono.device,
+                                        dtype=torch.float64)
+        w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-30)
+        return torch.matmul(tb_mono.double(), w.T).to(tb_mono.dtype)

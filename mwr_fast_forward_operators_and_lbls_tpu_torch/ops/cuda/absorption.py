@@ -25,6 +25,7 @@ import torch
 from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import total_absorption
 from ..absorption.h2o import _GL_W, _GL_X
+from ..spans import span
 from . import _build
 
 # Scalar slots at the head of the packed table, in the order of the `Header`
@@ -223,29 +224,31 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
     """
     if p.device.type == "cpu":
         return absorption_lb_reference(freqs, p, t, rho, lwc, model, o3)
-    with_o3 = o3 is not None
-    arrays = dict(p=p, t=t, rho=rho, lwc=lwc)
-    if with_o3:
-        arrays["o3"] = o3
-    layout, tables = _kernel_args(freqs, arrays, model, with_o3, tables)
-    out = torch.empty((len(freqs), *p.shape), dtype=torch.float32,
-                      device=p.device)
-    # K1 takes its channels by value: an array on the host, which the C
-    # entry point copies into the kernel's arguments before it returns
-    f = (ctypes.c_float * len(freqs))(*freqs)
-    with torch.cuda.device(p.device):
-        err = _build.library().mwr_absorption_lb(
-            p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
-            o3.data_ptr() if with_o3 else None, ctypes.addressof(f),
-            len(freqs),
-            tables.data_ptr(), layout.size, layout.n_h2o, layout.n_o2,
-            layout.n_o3, layout.h2o, layout.o2, layout.o3, layout.gl,
-            p.numel(), out.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"absorption kernel launch failed: CUDA error {err}")
-    absorption_lb.launches += 1
-    return out
+    with span("cuda.absorption_lb"):
+        with_o3 = o3 is not None
+        arrays = dict(p=p, t=t, rho=rho, lwc=lwc)
+        if with_o3:
+            arrays["o3"] = o3
+        layout, tables = _kernel_args(freqs, arrays, model, with_o3, tables)
+        out = torch.empty((len(freqs), *p.shape), dtype=torch.float32,
+                          device=p.device)
+        # K1 takes its channels by value: an array on the host, which the C
+        # entry point copies into the kernel's arguments before it returns
+        f = (ctypes.c_float * len(freqs))(*freqs)
+        with torch.cuda.device(p.device):
+            err = _build.library().mwr_absorption_lb(
+                p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
+                o3.data_ptr() if with_o3 else None, ctypes.addressof(f),
+                len(freqs),
+                tables.data_ptr(), layout.size, layout.n_h2o, layout.n_o2,
+                layout.n_o3, layout.h2o, layout.o2, layout.o3, layout.gl,
+                p.numel(), out.data_ptr(),
+                torch.cuda.current_stream(p.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"absorption kernel launch failed: CUDA "
+                               f"error {err}")
+        absorption_lb.launches += 1
+        return out
 
 
 absorption_lb.launches = 0
@@ -305,24 +308,26 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
     """
     if p.device.type == "cpu":
         return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model)
-    layout, tables = _kernel_args(freqs, dict(p=p, t=t, rho=rho, lwc=lwc),
-                                  model, False, tables)
-    out = torch.empty((3, len(freqs), *p.shape), dtype=torch.float32,
-                      device=p.device)
-    # K4 takes its channels by value, as K1 does
-    f = (ctypes.c_float * len(freqs))(*freqs)
-    with torch.cuda.device(p.device):
-        err = _build.library().mwr_absorption_tangents_lb(
-            p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
-            ctypes.addressof(f), len(freqs), tables.data_ptr(),
-            layout.n_h2o, layout.n_o2, layout.h2o, layout.o2, layout.gl,
-            p.numel(), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"absorption tangent kernel launch failed: CUDA "
-                           f"error {err}")
-    absorption_tangents_lb.launches += 1
-    return out[0], out[1], out[2]
+    with span("cuda.absorption_tangents_lb"):
+        layout, tables = _kernel_args(
+            freqs, dict(p=p, t=t, rho=rho, lwc=lwc), model, False, tables)
+        out = torch.empty((3, len(freqs), *p.shape), dtype=torch.float32,
+                          device=p.device)
+        # K4 takes its channels by value, as K1 does
+        f = (ctypes.c_float * len(freqs))(*freqs)
+        with torch.cuda.device(p.device):
+            err = _build.library().mwr_absorption_tangents_lb(
+                p.data_ptr(), t.data_ptr(), rho.data_ptr(), lwc.data_ptr(),
+                ctypes.addressof(f), len(freqs), tables.data_ptr(),
+                layout.n_h2o, layout.n_o2, layout.h2o, layout.o2, layout.gl,
+                p.numel(), out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr(),
+                torch.cuda.current_stream(p.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"absorption tangent kernel launch failed: "
+                               f"CUDA error {err}")
+        absorption_tangents_lb.launches += 1
+        return out[0], out[1], out[2]
 
 
 absorption_tangents_lb.launches = 0

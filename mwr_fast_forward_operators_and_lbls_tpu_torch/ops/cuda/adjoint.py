@@ -12,6 +12,7 @@ import torch.nn.functional as nnf
 
 from ...constants import physics as phys
 from .. import rte
+from ..spans import span
 from ..tensors import constant_vector
 from . import _build
 
@@ -163,10 +164,11 @@ def kmatrix_assembled_lb(freqs, which: str, alpha, da, ds, t_k, dds_dnl=None,
     if alpha.device.type == "cpu":
         return kmatrix_assembled_lb_reference(freqs, which, alpha, da, ds,
                                               t_k, dds_dnl, dds_dk, dn, r0cos)
-    (out,) = _launch(freqs, which, alpha, da, ds, t_k, dds_dnl, dds_dk, dn,
-                     r0cos)
-    kmatrix_assembled_lb.launches += 1
-    return out
+    with span("cuda.kmatrix_assembled_lb"):
+        (out,) = _launch(freqs, which, alpha, da, ds, t_k, dds_dnl, dds_dk,
+                         dn, r0cos)
+        kmatrix_assembled_lb.launches += 1
+        return out
 
 
 kmatrix_assembled_lb.launches = 0
@@ -181,10 +183,11 @@ def kmatrix_assembled_rho_lwc_lb(freqs, alpha, da_rho, da_lwc, ds, t_k,
         return kmatrix_assembled_rho_lwc_lb_reference(
             freqs, alpha, da_rho, da_lwc, ds, t_k, dds_dnl, dds_dk, dn_rho,
             r0cos)
-    k_rho, k_lwc = _launch(freqs, "rho_lwc", alpha, da_rho, ds, t_k, dds_dnl,
-                           dds_dk, dn_rho, r0cos, da2=da_lwc)
-    kmatrix_assembled_rho_lwc_lb.launches += 1
-    return k_rho, k_lwc
+    with span("cuda.kmatrix_assembled_rho_lwc_lb"):
+        k_rho, k_lwc = _launch(freqs, "rho_lwc", alpha, da_rho, ds, t_k,
+                               dds_dnl, dds_dk, dn_rho, r0cos, da2=da_lwc)
+        kmatrix_assembled_rho_lwc_lb.launches += 1
+        return k_rho, k_lwc
 
 
 kmatrix_assembled_rho_lwc_lb.launches = 0

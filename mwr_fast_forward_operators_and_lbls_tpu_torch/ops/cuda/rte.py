@@ -23,6 +23,7 @@ import torch
 
 from ...constants import physics as phys
 from .. import geometry, rte
+from ..spans import span
 from ..tensors import constant_vector
 from . import _build
 
@@ -151,27 +152,29 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     if alpha.device.type == "cpu":
         return forward_lb_reference(freqs, elevations, alpha, z, n, t,
                                     alpha_is_mid, want_trans_level)
-    dev = t.device
-    f = _frequency_vector(freqs, dev)
-    _check_inputs(f.numel(), alpha, dict(t=t, z=z, n=n), alpha_is_mid)
-    lev, batch = t.shape
-    n_el, n_ch = len(elevations), f.numel()
-    cos_el64 = _device_cos(tuple(float(v) for v in elevations), dev)
-    out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
-    with torch.cuda.device(dev):
-        err = _build.library().mwr_forward_lb(
-            cos_el64.data_ptr(), f.data_ptr(), alpha.data_ptr(),
-            z.data_ptr(), n.data_ptr(), t.data_ptr(), n_el, n_ch, lev, batch,
-            int(alpha_is_mid), phys.HK_GHZ, phys.T_COSMIC, phys.EARTH_RADIUS,
-            out["tb"].data_ptr(), out["tau_total"].data_ptr(),
-            out["t_mr"].data_ptr(),
-            out["trans_level"].data_ptr() if want_trans_level else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        forward_lb_body(alpha, n_el, alpha_is_mid)    # names a refused shape
-        raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
-    forward_lb.launches += 1
-    return out
+    with span("cuda.forward_lb"):
+        dev = t.device
+        f = _frequency_vector(freqs, dev)
+        _check_inputs(f.numel(), alpha, dict(t=t, z=z, n=n), alpha_is_mid)
+        lev, batch = t.shape
+        n_el, n_ch = len(elevations), f.numel()
+        cos_el64 = _device_cos(tuple(float(v) for v in elevations), dev)
+        out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
+        with torch.cuda.device(dev):
+            err = _build.library().mwr_forward_lb(
+                cos_el64.data_ptr(), f.data_ptr(), alpha.data_ptr(),
+                z.data_ptr(), n.data_ptr(), t.data_ptr(), n_el, n_ch, lev,
+                batch, int(alpha_is_mid), phys.HK_GHZ, phys.T_COSMIC,
+                phys.EARTH_RADIUS,
+                out["tb"].data_ptr(), out["tau_total"].data_ptr(),
+                out["t_mr"].data_ptr(),
+                out["trans_level"].data_ptr() if want_trans_level else None,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            forward_lb_body(alpha, n_el, alpha_is_mid)  # names a refused shape
+            raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
+        forward_lb.launches += 1
+        return out
 
 
 forward_lb.launches = 0
@@ -209,24 +212,25 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
     if alpha.device.type == "cpu":
         return downwelling_lb_reference(freqs, alpha, ds_km, t, alpha_is_mid,
                                         want_trans_level)
-    dev = t.device
-    f = _frequency_vector(freqs, dev)
-    _check_inputs(f.numel(), alpha, dict(t=t), alpha_is_mid, ds_km)
-    lev, batch = t.shape
-    n_el, n_ch = ds_km.shape[0], f.numel()
-    out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
-    with torch.cuda.device(dev):
-        err = _build.library().mwr_downwelling_lb(
-            f.data_ptr(), alpha.data_ptr(), ds_km.data_ptr(), t.data_ptr(),
-            n_el, n_ch, lev, batch, int(alpha_is_mid), phys.HK_GHZ,
-            phys.T_COSMIC, out["tb"].data_ptr(), out["tau_total"].data_ptr(),
-            out["t_mr"].data_ptr(),
-            out["trans_level"].data_ptr() if want_trans_level else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
-    downwelling_lb.launches += 1
-    return out
+    with span("cuda.downwelling_lb"):
+        dev = t.device
+        f = _frequency_vector(freqs, dev)
+        _check_inputs(f.numel(), alpha, dict(t=t), alpha_is_mid, ds_km)
+        lev, batch = t.shape
+        n_el, n_ch = ds_km.shape[0], f.numel()
+        out = _outputs(n_el, n_ch, lev, batch, want_trans_level, dev)
+        with torch.cuda.device(dev):
+            err = _build.library().mwr_downwelling_lb(
+                f.data_ptr(), alpha.data_ptr(), ds_km.data_ptr(), t.data_ptr(),
+                n_el, n_ch, lev, batch, int(alpha_is_mid), phys.HK_GHZ,
+                phys.T_COSMIC, out["tb"].data_ptr(),
+                out["tau_total"].data_ptr(), out["t_mr"].data_ptr(),
+                out["trans_level"].data_ptr() if want_trans_level else None,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
+        downwelling_lb.launches += 1
+        return out
 
 
 downwelling_lb.launches = 0

@@ -24,6 +24,7 @@ import torch
 from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import (h2o_absorption, liquid_absorption, n2_absorption,
                           o2_absorption, o3_absorption, total_absorption)
+from ..spans import span
 from . import _build
 from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, O3_FIELDS,
                          check_points, line_tables, pack_tables, table_layout)
@@ -270,9 +271,10 @@ def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
     if p.device.type == "cpu":
         return absorption_spectral_reference(f_ghz, p, t, rho, lwc, model,
                                              f_range)
-    out = _launch(f_ghz, p, t, rho, lwc, model, f_range)[1]
-    absorption_spectral.launches += 1
-    return out
+    with span("cuda.absorption_spectral"):
+        out = _launch(f_ghz, p, t, rho, lwc, model, f_range)[1]
+        absorption_spectral.launches += 1
+        return out
 
 
 absorption_spectral.launches = 0

@@ -172,7 +172,12 @@ def trace(log_dir: str = "mwr_torch_trace"):
     """Capture a `torch.profiler` trace of the block (CPU activity, and CUDA
     activity where there is a card) and write it to `log_dir/trace.json` in
     Chrome's format.  Yields the profiler, whose `key_averages()` sums the
-    device time by kernel."""
+    device time by kernel.
+
+    This is the way to trace any call of the port: inside the block the
+    entry points and kernel wrappers record their spans (`ops/spans.py`,
+    `SPAN_NAMES`) as `user_annotation` events on the trace's clock, so each
+    device gap lies under the host span that was running."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -44,6 +44,7 @@ from ..models import fast as fast_mod
 from ..models import jacobians as jac_mod
 from ..models import lbl as lbl_mod
 from ..ops.cuda.absorption import line_tables
+from ..ops.spans import span
 from ..ops.tensors import resolve_device
 
 JAC_WRT = ("t", "rho", "lwc")
@@ -265,51 +266,57 @@ def forward_stage(ds: Dataset,
       (`fast.params_from_numpy`).
     compress_upload: opt-in fp16-anomaly payload encoding (see `_upload`).
     """
-    dev = resolve_device(device)
-    use_kernels = fused is None or bool(fused)
-    models = tuple(models)
-    if fast_params is not None:
-        fast_params = fast_mod.params_from_numpy(fast_params, dev)
-    out = _allocate(ds.dims["time"], ds.dims["N_Levels"], models,
-                    fast_params is not None, with_jacobians, dev)
-    tables = _stage_tables(models, use_kernels, dev)
-    # Upload and enqueue BOTH crops before reading any result: crop 1's
-    # screening and upload overlap crop 0's device work.
-    for crop in (0, 1):
-        raw = preprocess.profiles_for_forward(ds, crop=crop)
-        profiles, mask = _screen(raw)
-        if not mask.any():
-            continue
-        payload, ref = _upload(profiles, compress_upload, dev)
-        _stage_device(payload, ref, fast_params, models, use_kernels,
-                      batch_size, tables, out, crop)
-        _mask(out, mask, crop)
-    res = _pull(out)
+    with span("stage.forward_stage"):
+        dev = resolve_device(device)
+        use_kernels = fused is None or bool(fused)
+        models = tuple(models)
+        if fast_params is not None:
+            fast_params = fast_mod.params_from_numpy(fast_params, dev)
+        out = _allocate(ds.dims["time"], ds.dims["N_Levels"], models,
+                        fast_params is not None, with_jacobians, dev)
+        tables = _stage_tables(models, use_kernels, dev)
+        # Upload and enqueue BOTH crops before reading any result: crop 1's
+        # screening and upload overlap crop 0's device work.
+        for crop in (0, 1):
+            with span("stage.screen"):
+                raw = preprocess.profiles_for_forward(ds, crop=crop)
+                profiles, mask = _screen(raw)
+            if not mask.any():
+                continue
+            with span("stage.upload"):
+                payload, ref = _upload(profiles, compress_upload, dev)
+            with span("stage.enqueue"):
+                _stage_device(payload, ref, fast_params, models, use_kernels,
+                              batch_size, tables, out, crop)
+            with span("stage.mask"):
+                _mask(out, mask, crop)
+        with span("stage.pull"):
+            res = _pull(out)
 
-    mdims = ("time", "N_Channels", "elevation", "Crop")
-    for m in models:
-        ds[f"TBs_LBL_{m}"] = Variable(
-            mdims, res["lbl"][m],
-            {"units": "K",
-             "long_name": f"native LBL brightness temperatures ({m} "
-                          "absorption)",
-             "comment": "replaces TBs_PyRTlib_" + m})
-    if fast_params is not None:
-        fast_tb, fast_ttrans, fast_levtrans = (
-            res["fast"][k] for k in ("tb", "ttrans", "levtrans"))
-        ds["TBs_Fast"] = Variable(mdims, fast_tb, {
-            "units": "K",
-            "long_name": "fast predictor-regression operator TBs",
-            "comment": "replaces TBs_RTTOV_gb / TBs_ARMS_gb"})
-        ds["ttrans_Fast"] = Variable(mdims, fast_ttrans, {
-            "long_name": "surface-to-space transmittance"})
-        ds["levtrans_Fast"] = Variable(
-            ("time", "N_Channels", "N_Levels", "elevation", "Crop"),
-            fast_levtrans, {"long_name": "level-to-surface transmittance"})
-    name_map = {"t": "T", "rho": "rho", "lwc": "liq"}
-    for name, arr in res.get("jac", {}).items():
-        ds[f"Jacobian_{name_map[name]}_LBL"] = Variable(
-            ("time", "N_Channels", "elevation", "N_Levels", "Crop"), arr,
-            {"long_name": f"dTB/d{name} K-matrix (autodiff)",
-             "comment": "replaces Jacobian_*_RTTOV_gb (Fortran adjoint)"})
-    return ds
+        mdims = ("time", "N_Channels", "elevation", "Crop")
+        for m in models:
+            ds[f"TBs_LBL_{m}"] = Variable(
+                mdims, res["lbl"][m],
+                {"units": "K",
+                 "long_name": f"native LBL brightness temperatures ({m} "
+                              "absorption)",
+                 "comment": "replaces TBs_PyRTlib_" + m})
+        if fast_params is not None:
+            fast_tb, fast_ttrans, fast_levtrans = (
+                res["fast"][k] for k in ("tb", "ttrans", "levtrans"))
+            ds["TBs_Fast"] = Variable(mdims, fast_tb, {
+                "units": "K",
+                "long_name": "fast predictor-regression operator TBs",
+                "comment": "replaces TBs_RTTOV_gb / TBs_ARMS_gb"})
+            ds["ttrans_Fast"] = Variable(mdims, fast_ttrans, {
+                "long_name": "surface-to-space transmittance"})
+            ds["levtrans_Fast"] = Variable(
+                ("time", "N_Channels", "N_Levels", "elevation", "Crop"),
+                fast_levtrans, {"long_name": "level-to-surface transmittance"})
+        name_map = {"t": "T", "rho": "rho", "lwc": "liq"}
+        for name, arr in res.get("jac", {}).items():
+            ds[f"Jacobian_{name_map[name]}_LBL"] = Variable(
+                ("time", "N_Channels", "elevation", "N_Levels", "Crop"), arr,
+                {"long_name": f"dTB/d{name} K-matrix (autodiff)",
+                 "comment": "replaces Jacobian_*_RTTOV_gb (Fortran adjoint)"})
+        return ds

@@ -455,13 +455,3 @@ def test_path_rooflines_are_the_sums_of_their_kernels():
             < lbl_sum.div_ops)
     assert (profiling.spectral_roofline(5760, 8192, f_range=(20.0, 400.0))
             != spec_sum)
-
-
-def test_path_times_needs_a_card(monkeypatch, capsys):
-    """The host-against-device timer of one entry point exits with 1 on a
-    machine without a card, having measured nothing."""
-    from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
-        path_times)
-    monkeypatch.setattr("sys.argv", ["path_times.py", "--path", "forward"])
-    assert path_times.main() == 1
-    assert "CUDA" in capsys.readouterr().out
