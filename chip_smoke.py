@@ -39,13 +39,16 @@ twenty-five phases, each printing its own lines:
   6. the K-matrix adjoint kernel (K5) for t, rho, lwc and rho+lwc against
      its plain version run in float64, 256 profiles x 10 elevations x 14
      channels x 180 levels, and its LWC columns again on alpha rounded from
-     the float64 function;
+     the float64 function; the K-matrix's float64 slant-geometry kernel
+     against its plain version (every output within 2 float32 ulp);
   7. the K-matrix path, `kmatrix_batch_fast` on 256 profiles for t, rho and
-     lwc, with the launch counts of K4 and both K5 wrappers;
+     lwc, with the launch counts of K4, the geometry kernel and both K5
+     wrappers;
   8. that K-matrix against the plain path in float64 on the card, and its
      physical signs;
   9. CUDA-event times of K4 (with its blocks against its resident slots),
-     K5 and the K-matrix against the plain versions,
+     the geometry kernel (with its bound by bytes), K5 and the K-matrix
+     against the plain versions,
      of `forward_batch` at the same batch, of the output permute alone, and
      peak device memory; K5 t on 32 profiles in a graph, one block per
      (elevation, channel);
@@ -242,6 +245,15 @@ def graph_ms(fn, calls=20, replays=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def max_ulps(got, want) -> int:
+    """The largest distance of two float32 tensors in units in the last
+    place (+0 and -0 are one value)."""
+    def ordered(a):
+        bits = a.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return int((ordered(got) - ordered(want)).abs().max())
 
 
 def level_major(profiles):
@@ -1714,6 +1726,8 @@ def main() -> int:
         _build)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
         OPS as CHAIN_OPS, chain, chain_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.geometry import (  # noqa: E501
+        slant_geometry_lb, slant_geometry_lb_reference)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
         profiling)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
@@ -2092,6 +2106,16 @@ def main() -> int:
     da = {"t": da_t, "rho": da_rho,
           "lwc": jacobians._dalpha_dlwc(cfg_k, kprof["t"])}
     geom = jacobians._slant_geometry(kprof, cfg_k, ("t", "rho"))
+    geom_args = (elevs, kprof["z"], kprof["p"], kprof["t"], kprof["rho"])
+    geom_ref = slant_geometry_lb_reference(*geom_args)
+    torch.cuda.synchronize()
+    geom_ulps = {k: max_ulps(geom[k], geom_ref[k])
+                 for k in ("ds", "dds_dnl", "dds_dk", "r0cos")}
+    geom_ulps.update({f"dn_{k}": max_ulps(geom["dn"][k], geom_ref["dn"][k])
+                      for k in ("t", "rho")})
+    print(f"phase 6: geometry kernel B={BK} E={len(elevs)} L={L} against its "
+          f"plain version, float32 ulp at most: {geom_ulps} (bound 2)")
+    check(max(geom_ulps.values()) <= 2, f"geometry kernel ulps {geom_ulps}")
 
     def geo(name):
         return (geom["dds_dnl"], geom["dds_dk"], geom["dn"][name],
@@ -2146,6 +2170,7 @@ def main() -> int:
     # ---- phase 7: the K-matrix path ---------------------------------------
     kprofiles = lbl.demo_batch(BK, L, device=dev)
     k_counters = {"absorption_tangents_lb": absorption_tangents_lb,
+                  "slant_geometry_lb": slant_geometry_lb,
                   "kmatrix_assembled_lb": kmatrix_assembled_lb,
                   "kmatrix_assembled_rho_lwc_lb": kmatrix_assembled_rho_lwc_lb}
     for fn in k_counters.values():
@@ -2154,8 +2179,8 @@ def main() -> int:
     k_launches = {name: fn.launches for name, fn in k_counters.items()}
     torch.cuda.synchronize()
     print(f"phase 7: launches during the K-matrix path: {k_launches}")
-    check(all(v > 0 for v in k_launches.values()),
-          f"a kernel of the K-matrix path was not launched: {k_launches}")
+    check(all(v == 1 for v in k_launches.values()),
+          f"the K-matrix path launches each kernel once: {k_launches}")
     for name in WRT:
         check(tuple(kmat[name].shape) == (BK, len(elevs), len(freqs), L),
               f"K {name} shape {tuple(kmat[name].shape)}")
@@ -2191,6 +2216,20 @@ def main() -> int:
         lambda: absorption_tangents_lb_reference(*k4_args["R24"]))
     graph_times["absorption_tangents_lb"] = graph_ms(
         lambda: absorption_tangents_lb(*k4_args["R24"]))
+    geom_ms = timed_ms(lambda: slant_geometry_lb(*geom_args))
+    geom_plain_ms = timed_ms(lambda: slant_geometry_lb_reference(*geom_args))
+    graph_times["slant_geometry_lb"] = graph_ms(
+        lambda: slant_geometry_lb(*geom_args))
+    # each input read once, each output written once
+    geom_bytes = (4 * 4 * L * BK + 8 * len(elevs)
+                  + 4 * (3 * len(elevs) * (L - 1) * BK + 2 * L * BK
+                         + len(elevs) * BK))
+    geom_bound_ms = geom_bytes / 3.35e12 * 1e3
+    print(f"phase 9: geometry kernel B={BK} E={len(elevs)} L={L}: kernel "
+          f"{geom_ms:.4f} ms ({graph_times['slant_geometry_lb']:.4f} ms in a "
+          f"graph), plain {geom_plain_ms:.4f} ms; {geom_bytes} bytes, bound "
+          f"{geom_bound_ms:.4f} ms at 3.35e12 B/s, share "
+          f"{geom_bound_ms / graph_times['slant_geometry_lb']:.4f} in a graph")
     k5_ms = {}
     for which in ("t", "rho_lwc"):
         kernel, plain, args = k5_calls[which]

@@ -18,8 +18,8 @@ elevation, stacked to (B, E, F, L) for a batch, as in the JAX package's
 and assembles K_x[e, f, l] = dTB/dalpha[e, f, l] dalpha[f, l]/dx[l] plus the
 direct Planck (t) and refraction-geometry (t, rho, p) terms.  On CUDA float32
 profiles with wrt within {t, rho, lwc} it runs the kernels: K4 gives alpha
-and both tangent fields in one dual-number pass, K5 the adjoint with the
-assembly folded in.
+and both tangent fields in one dual-number pass, one more kernel the float64
+slant geometry, K5 the adjoint with the assembly folded in.
 
 The fast operator (`models/fast.py`) has the same structure with layer-mean
 extinction in place of level absorption: `kmatrix_fast_single` and
@@ -41,6 +41,7 @@ from ..ops.cuda.absorption import (absorption_partials_lb,
 from ..ops.cuda.adjoint import (kmatrix_assembled_lb,
                                 kmatrix_assembled_reference,
                                 kmatrix_assembled_rho_lwc_lb)
+from ..ops.cuda.geometry import slant_geometry_lb, slant_geometry_lb_reference
 from ..ops.spans import span
 from . import fast as fast_mod
 from . import lbl
@@ -48,6 +49,8 @@ from .lbl import LBLConfig
 
 # the variables the kernels' pipeline differentiates
 LANES_WRT = frozenset({"t", "rho", "lwc"})
+# the refractive-index partials the geometry kernel writes
+GEOMETRY_WRT = frozenset({"t", "rho"})
 
 
 def kmatrix_single(z_m, p_hpa, t_k, rho_gm3, lwc_gm3, f_ghz, elevation_deg,
@@ -140,44 +143,30 @@ def _slant_geometry(lev: dict, config: LBLConfig, names) -> dict:
     {name: d(refractive index)/d(name) (L, B)} for each of `names` in
     {"t", "rho", "p"}, through e = rho T Rv / 1e5.
 
-    Computed in float64 and returned in the profiles' dtype: at low
-    elevations the chords hang on r - rk, and float32 quantizes r = R_E + z
-    to half a metre, which put 1.2e-3 of max |K| into k_t at 4.2 degrees.
-    The arrays are E x L x B, small beside the kernels' work.
+    Computed in float64 and returned in the profiles' dtype
+    (`slant_geometry_lb_reference` says why).  CUDA float32 profiles with
+    `config.use_kernels` and names within {t, rho} take the geometry kernel
+    (one launch); every other call the plain version.
     """
-    dtype = lev["t"].dtype
-    z, p, t, rho = (lev[k].double() for k in ("z", "p", "t", "rho"))
-    e = thermo.rho_to_e(rho, t)
-    n = geometry.refractive_index(p, t, e)
-    dn_dp, dn_dt, dn_de = geometry.refractive_index_partials(p, t, e)
-    # e = rho T Rv / 1e5: de/dT = e(rho, 1), de/drho = e(1, T)
-    dn = {"p": dn_dp, "t": dn_dt + dn_de * thermo.rho_to_e(rho, 1.0),
-          "rho": dn_de * thermo.rho_to_e(1.0, t)}
-    dn = {name: dn[name].to(dtype) for name in names}
-    cos_el = torch.cos(torch.deg2rad(constant_vector(
-        config.elevations_deg, torch.float64, t.device)))
-    # all elevations at once: levels on axis 0, then (E, B)
-    zb, nb, cb = z[:, None], n[:, None], cos_el[:, None]
-
-    def elevation_major(a):                     # (L-1, E, B) -> (E, L-1, B)
-        return a.transpose(0, 1).to(dtype).contiguous()
-
-    dds_dnl, dds_dk = geometry.chord_sensitivities(zb, nb, cb)
-    r0cos = (phys.EARTH_RADIUS + z[0])[None, :] * cos_el[:, None]
-    return dict(ds=elevation_major(geometry.chord_lengths(zb, nb, cb)),
-                dds_dnl=elevation_major(dds_dnl),
-                dds_dk=elevation_major(dds_dk), r0cos=r0cos.to(dtype), dn=dn)
+    args = (config.elevations_deg,) + tuple(lev[k] for k in ("z", "p", "t",
+                                                             "rho"))
+    t = lev["t"]
+    if (t.is_cuda and t.dtype == torch.float32 and config.use_kernels
+            and set(names) <= GEOMETRY_WRT):
+        g = slant_geometry_lb(*args)
+        return dict(g, dn={name: g["dn"][name] for name in names})
+    return slant_geometry_lb_reference(*args, names=names)
 
 
 def _kmatrix_batch_fused_lanes(lev: dict, config: LBLConfig, wrt, tables):
     """The kernels' K-matrix pipeline in the level-major (L, B) layout.
 
     One dual-number pass of K4 gives alpha and its T and rho tangents; the
-    geometry terms come from plain torch; K5 then writes each requested K
-    (E, F, L, B) with the closed-form adjoint and both direct terms folded
-    in: t alone, and rho with lwc from one shared adjoint core when all
-    three are asked for.  On CPU tensors the wrappers run their plain
-    versions.
+    geometry kernel the chords and their sensitivities (`_slant_geometry`);
+    K5 then writes each requested K (E, F, L, B) with the closed-form
+    adjoint and both direct terms folded in: t alone, and rho with lwc from
+    one shared adjoint core when all three are asked for.  On CPU tensors
+    the wrappers run their plain versions.
     """
     freqs, t = config.freqs_ghz, lev["t"]
     alpha, da_t, da_rho = absorption_tangents_lb(

@@ -9,4 +9,5 @@ launch count and its plain torch version:
   adjoint.kmatrix_assembled_rho_lwc_lb  <- csrc/adjoint.cu           (K5)
   spectral.absorption_spectral       <- csrc/absorption_spectral.cu  (K6)
   chain.chain                        <- csrc/chain.cu                (K7)
+  geometry.slant_geometry_lb         <- csrc/geometry.cu    (K geometry)
 """

@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # points at it.
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
 # argtypes of every C entry point: without them ctypes passes Python ints as
 # 32-bit C ints and cuts the device pointers.
 SIGNATURES = {
@@ -60,6 +61,9 @@ SIGNATURES = {
     "mwr_kmatrix_resident_warps": [_I] * 2,
     # op, k, x, out, n, threads, stream
     "mwr_chain": [_I, _I, _P, _P, _I, _I, _P],
+    # cos_el, z, p, t, rho, E, L, B, rv, earth_radius, k1, k2, k3, ds,
+    # dds_dnl, dds_dk, dn_t, dn_rho, r0cos, stream
+    "mwr_slant_geometry_lb": [_P] * 5 + [_I] * 3 + [_D] * 5 + [_P] * 7,
 }
 
 

@@ -19,7 +19,8 @@ transform of a plain path runs inside one.
   lbl.*       models.lbl.forward_batch
   kmatrix.*   models.jacobians.kmatrix_batch_fast
   spectral.*  models.spectral.forward_spectral and srf_convolve
-  cuda.*      the kernel wrappers of ops/cuda (K1-K6), on the card only
+  cuda.*      the kernel wrappers of ops/cuda (K1-K6 and the K-matrix's
+              slant geometry), on the card only
   stage.*     pipeline.forward.forward_stage
 """
 
@@ -37,6 +38,7 @@ SPAN_NAMES = frozenset({
     "cuda.absorption_lb", "cuda.forward_lb", "cuda.downwelling_lb",
     "cuda.absorption_tangents_lb", "cuda.kmatrix_assembled_lb",
     "cuda.kmatrix_assembled_rho_lwc_lb", "cuda.absorption_spectral",
+    "cuda.slant_geometry_lb",
     "stage.forward_stage", "stage.screen", "stage.upload", "stage.enqueue",
     "stage.mask", "stage.pull",
 })

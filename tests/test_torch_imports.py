@@ -266,7 +266,7 @@ def test_every_c_entry_point_has_its_ctypes_signature():
     as a 32-bit int: every pointer is c_void_p, every int c_int, every
     float c_float, in order."""
     ctype = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
-             "float": ctypes.c_float}
+             "float": ctypes.c_float, "double": ctypes.c_double}
     entries = _c_entry_points()
     assert set(entries) == set(_build.SIGNATURES)
     assert {"mwr_absorption_lb", "mwr_absorption_tangents_lb",

@@ -12,6 +12,8 @@ import torch
 
 from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
     H2O_MODELS)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.constants import (
+    physics as phys)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (fast,
                                                                   jacobians,
                                                                   lbl,
@@ -29,6 +31,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
     kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
     OPS as CHAIN_OPS, chain, chain_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.geometry import (
+    slant_geometry_lb, slant_geometry_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
     downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_body,
     forward_lb_reference)
@@ -374,8 +378,8 @@ def test_kmatrix_kernel_matches_plain(device, batch, n_levels, which):
 @pytest.mark.cuda
 def test_kmatrix_path_launches_each_kernel_once(device):
     profiles = lbl.demo_batch(130, 180, device=device)
-    counters = (absorption_tangents_lb, kmatrix_assembled_lb,
-                kmatrix_assembled_rho_lwc_lb)
+    counters = (absorption_tangents_lb, slant_geometry_lb,
+                kmatrix_assembled_lb, kmatrix_assembled_rho_lwc_lb)
     before = [c.launches for c in counters]
     got = jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(),
                                        wrt=("t", "rho", "lwc"))
@@ -422,12 +426,167 @@ def test_kmatrix_wrappers_refuse_what_the_kernels_do_not_take(device):
         kmatrix_assembled_rho_lwc_lb(FREQS, alpha, da["rho"], da["lwc"][:2],
                                      g["ds"], t, g["dds_dnl"], g["dds_dk"],
                                      g["dn"]["rho"], g["r0cos"])
+    with pytest.raises(ValueError, match="float32"):
+        slant_geometry_lb(ELEVS, prof["z"].double(), *(
+            prof[k].double() for k in ("p", "t", "rho")))
     profiles = lbl.demo_batch(2, 20, device=device)
     for fused in (None, True):
         with pytest.raises(ValueError, match="float32 only"):
             jacobians.kmatrix_batch_fast(profiles,
                                          lbl.LBLConfig(dtype="float64"),
                                          fused=fused)
+
+
+GEOMETRY_KEYS = ("ds", "dds_dnl", "dds_dk", "r0cos")
+
+
+def _geometry_by_elevation(elevations, lev, names):
+    """The K-matrix's geometry composed from ops/geometry.py's functions one
+    elevation at a time, in float64, each output rounded once to the
+    profiles' dtype."""
+    dtype = lev["t"].dtype
+    z, p, t, rho = (lev[k].double() for k in ("z", "p", "t", "rho"))
+    e = thermo.rho_to_e(rho, t)
+    n = geometry.refractive_index(p, t, e)
+    dn_dp, dn_dt, dn_de = geometry.refractive_index_partials(p, t, e)
+    dn = {"p": dn_dp, "t": dn_dt + dn_de * thermo.rho_to_e(rho, 1.0),
+          "rho": dn_de * thermo.rho_to_e(1.0, t)}
+    out = {k: [] for k in GEOMETRY_KEYS}
+    for el in elevations:
+        c = torch.cos(torch.deg2rad(torch.tensor(float(el),
+                                                 dtype=torch.float64)))
+        out["ds"].append(geometry.chord_lengths(z, n, c))
+        dnl, dk = geometry.chord_sensitivities(z, n, c)
+        out["dds_dnl"].append(dnl)
+        out["dds_dk"].append(dk)
+        out["r0cos"].append((phys.EARTH_RADIUS + z[0]) * c)
+    return dict({k: torch.stack(v).to(dtype) for k, v in out.items()},
+                dn={name: dn[name].to(dtype) for name in names})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_geometry_plain_version_keeps_the_float64_bits(dtype):
+    """On CPU tensors the wrapper returns the plain float64 geometry, bit
+    for bit, at the zenith, 4.2 degrees and the whole HATPRO scan."""
+    lev = {k: v.to(dtype) for k, v in _levels(5, 40, "cpu").items()}
+    args = [lev[k] for k in ("z", "p", "t", "rho")]
+    before = slant_geometry_lb.launches
+    got = slant_geometry_lb(ELEVS, *args)
+    assert slant_geometry_lb.launches == before
+    want = _geometry_by_elevation(ELEVS, lev, ("t", "rho"))
+    assert got["dn"].keys() == want["dn"].keys()
+    for name in GEOMETRY_KEYS:
+        assert got[name].dtype == dtype and got[name].is_contiguous(), name
+        assert torch.equal(got[name], want[name]), name
+    for name in ("t", "rho"):
+        assert torch.equal(got["dn"][name], want["dn"][name]), name
+
+
+@pytest.mark.parametrize("fault", ["shape", "contiguity", "dtype"])
+def test_geometry_wrapper_refuses_what_the_kernel_does_not_take(fault):
+    """A mismatched shape and a non-contiguous profile on any device, and
+    anything but float32 off the CPU (here a tensor on the meta device)."""
+    lev = _levels(4, 20, "cpu")
+    args = [lev[k] for k in ("z", "p", "t", "rho")]
+    if fault == "shape":
+        args[1] = args[1][:, :3].contiguous()
+    elif fault == "contiguity":
+        args[3] = torch.cat([args[3], args[3]], 1)[:, ::2]
+    else:
+        args = [torch.empty(a.shape, dtype=torch.float64, device="meta")
+                for a in args]
+    with pytest.raises(ValueError):
+        slant_geometry_lb(ELEVS, *args)
+
+
+@pytest.mark.parametrize("names", [("t",), ("rho",), ("t", "rho"),
+                                   ("t", "rho", "p")],
+                         ids=lambda n: "_".join(n))
+def test_slant_geometry_returns_its_keys_shapes_and_dtypes(names):
+    lev = _levels(3, 12, "cpu")
+    cfg = lbl.LBLConfig()
+    g = jacobians._slant_geometry(lev, cfg, names)
+    n_el = len(cfg.elevations_deg)
+    assert set(g) == {"ds", "dds_dnl", "dds_dk", "r0cos", "dn"}
+    assert tuple(g["dn"]) == names
+    for name in ("ds", "dds_dnl", "dds_dk"):
+        assert g[name].shape == (n_el, 11, 3), name
+    assert g["r0cos"].shape == (n_el, 3)
+    for name in names:
+        assert g["dn"][name].shape == (12, 3), name
+    for a in (g["ds"], g["dds_dnl"], g["dds_dk"], g["r0cos"],
+              *g["dn"].values()):
+        assert a.dtype == torch.float32
+
+
+def _ulps(got, want):
+    """Distance in float32 units in the last place, elementwise (+0 and -0
+    are one value)."""
+    def ordered(a):
+        bits = a.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return (ordered(got) - ordered(want)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elevations", [(90.0,), (4.2,), ELEVS],
+                         ids=["zenith", "4.2deg", "hatpro"])
+@pytest.mark.parametrize("batch", [256, 37])
+def test_geometry_kernel_matches_plain(device, batch, elevations):
+    """The kernel against its plain version on the card: every output
+    within 2 float32 ulp (both work in float64 in the same order of
+    operations and round once)."""
+    lev = _levels(batch, 180, device)
+    args = [lev[k] for k in ("z", "p", "t", "rho")]
+    before = slant_geometry_lb.launches
+    got = slant_geometry_lb(elevations, *args)
+    assert slant_geometry_lb.launches == before + 1
+    want = slant_geometry_lb_reference(elevations, *args)
+    torch.cuda.synchronize()
+    n_el = len(elevations)
+    shapes = {"ds": (n_el, 179, batch), "dds_dnl": (n_el, 179, batch),
+              "dds_dk": (n_el, 179, batch), "r0cos": (n_el, batch)}
+    for name, shape in shapes.items():
+        assert got[name].shape == shape and got[name].is_contiguous(), name
+        assert bool(torch.isfinite(got[name]).all()), name
+        assert int(_ulps(got[name], want[name]).max()) <= 2, name
+    for name in ("t", "rho"):
+        assert got["dn"][name].shape == (180, batch)
+        assert int(_ulps(got["dn"][name], want["dn"][name]).max()) <= 2, name
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_zenith_chord_is_dz(device):
+    lev = _levels(256, 180, device)
+    got = slant_geometry_lb((90.0,), *(lev[k] for k in ("z", "p", "t",
+                                                         "rho")))
+    z = lev["z"].double()
+    assert torch.equal(got["ds"][0], ((z[1:] - z[:-1]) * 1e-3).float())
+
+
+@pytest.mark.cuda
+def test_kmatrix_with_the_geometry_kernel_meets_the_k_criterion(device,
+                                                                monkeypatch):
+    """kmatrix_batch_fast on the card against the float64 closed form: each
+    variable's max |K - K_ref| within 1e-3 of max |K_ref|, and the same K as
+    with the plain geometry."""
+    profiles = lbl.demo_batch(256, 180, device=device)
+    wrt = ("t", "rho", "lwc")
+    before = slant_geometry_lb.launches
+    got = jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(), wrt=wrt)
+    assert slant_geometry_lb.launches == before + 1
+    monkeypatch.setattr(jacobians, "GEOMETRY_WRT", frozenset())
+    plain = jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(), wrt=wrt)
+    assert slant_geometry_lb.launches == before + 1
+    want = jacobians.kmatrix_batch_fast(
+        {k: v.double() for k, v in profiles.items()},
+        lbl.LBLConfig(dtype="float64", use_kernels=False), wrt=wrt)
+    for name in wrt:
+        scale = float(want[name].abs().max())
+        err = float((got[name].double() - want[name]).abs().max()) / scale
+        assert err <= 1e-3, (name, err)
+        moved = float((got[name] - plain[name]).abs().max()) / scale
+        assert moved <= 1e-6, (name, moved)
 
 
 def _grid(nf, device):

@@ -4,8 +4,8 @@ On the CPU each batched entry point runs once under
 `parallel.profiling.trace` and once without a profiler: the spans nest under
 the entry's span in the order of the code, every name is in `SPAN_NAMES`,
 and the outputs are the same bits either way.  The test marked `cuda`
-checks on the card that each kernel K1-K6 is launched inside its wrapper's
-`cuda.*` span.
+checks on the card that each kernel K1-K6, and the K-matrix's geometry
+kernel, is launched inside its wrapper's `cuda.*` span.
 """
 
 import contextlib
@@ -22,7 +22,7 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (jacobians,
                                                                   spectral)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import spans
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
-    absorption, adjoint, rte)
+    absorption, adjoint, geometry, rte)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     spectral as k6)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import profiling
@@ -238,6 +238,7 @@ WRAPPERS = {
     adjoint.kmatrix_assembled_lb: ("kmatrix_kernel",),
     adjoint.kmatrix_assembled_rho_lwc_lb: ("kmatrix_kernel",),
     k6.absorption_spectral: ("line_state_kernel", "spectral_kernel"),
+    geometry.slant_geometry_lb: ("slant_geometry_kernel",),
 }
 
 
