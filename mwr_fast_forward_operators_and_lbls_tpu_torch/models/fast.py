@@ -34,6 +34,7 @@ from ..data import preprocess
 from ..ops import geometry, rte, thermo
 from ..ops.cuda.absorption import absorption_lb, absorption_lb_reference
 from ..ops.cuda.rte import forward_lb
+from ..ops.spans import span
 from ..ops.tensors import (constant_vector, input_device,
                            resolve_device)  # noqa: F401 (re-exported)
 from . import lbl
@@ -245,21 +246,23 @@ def fast_forward_batch(params: dict, profiles: dict,
     plain batched path.  CUDA profiles of another dtype with `use_kernels`
     raise: the kernel is float32 only.
     """
-    dtype = getattr(torch, config.dtype)
-    a = batch_arrays(profiles, dtype)
-    if config.use_kernels and a["p"].is_cuda:
-        if dtype != torch.float32:
-            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
-                             f"{config.dtype!r} (use_kernels=False runs the "
-                             f"plain torch path in any dtype)")
-        return _fast_forward_batch_kernels(params, a, config)
-    return _fast_forward_batch_plain(params, a, config)
+    with span("fast.forward_batch"):
+        dtype = getattr(torch, config.dtype)
+        a = batch_arrays(profiles, dtype)
+        if config.use_kernels and a["p"].is_cuda:
+            if dtype != torch.float32:
+                raise ValueError(f"the CUDA kernels are float32 only; got "
+                                 f"dtype {config.dtype!r} (use_kernels=False "
+                                 f"runs the plain torch path in any dtype)")
+            return _fast_forward_batch_kernels(params, a, config)
+        return _fast_forward_batch_plain(params, a, config)
 
 
 def _fast_forward_batch_plain(params, a: dict, config: FastConfig) -> dict:
     z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
     f = constant_vector(config.freqs_ghz, t.dtype, t.device)
-    alpha = predict_extinction(params, p, t, rho, lwc)          # (B, L-1, C)
+    with span("fast.extinction"):
+        alpha = predict_extinction(params, p, t, rho, lwc)      # (B, L-1, C)
     e_hpa = thermo.rho_to_e(rho, t)
     ds = torch.stack([geometry.slant_path_lengths_lb(z.T, p.T, t.T, e_hpa.T,
                                                      el)
@@ -285,17 +288,21 @@ def _fast_forward_batch_kernels(params, a: dict, config: FastConfig) -> dict:
     """The serving path in the level-major layout: one transpose in, the
     extinction already in the (C, L-1, B) layout K2 reads, one permute per
     output back to the public layout."""
-    z, p, t, rho, lwc = torch.stack(
-        [a[k] for k in ("z", "p", "t", "rho", "lwc")]).transpose(
-            1, 2).contiguous().unbind(0)                        # each (L, B)
-    alpha_mid = serving_extinction(params, p, t, rho, lwc)
-    n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
+    with span("fast.layout"):
+        z, p, t, rho, lwc = torch.stack(
+            [a[k] for k in ("z", "p", "t", "rho", "lwc")]).transpose(
+                1, 2).contiguous().unbind(0)                    # each (L, B)
+    with span("fast.extinction"):
+        alpha_mid = serving_extinction(params, p, t, rho, lwc)
+    with span("fast.refractive_index"):
+        n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
     stacked = forward_lb(config.freqs_ghz, config.elevations_deg, alpha_mid,
                          z, n, t, alpha_is_mid=True,
                          want_trans_level="trans_level" in config.outputs)
-    return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"
-                else v.permute(2, 0, 1)).contiguous()
-            for k, v in stacked.items() if k in config.outputs}
+    with span("fast.output_layout"):
+        return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"
+                    else v.permute(2, 0, 1)).contiguous()
+                for k, v in stacked.items() if k in config.outputs}
 
 
 # ---------------------------------------------------------------------------

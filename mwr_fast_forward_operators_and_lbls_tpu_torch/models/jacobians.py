@@ -285,42 +285,49 @@ def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
     {"t", "rho"}.
     """
     config = config or fast_mod.FastConfig()
-    a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
-    z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
-    f = constant_vector(config.freqs_ghz, t.dtype, t.device)
-    elevs = constant_vector(config.elevations_deg, t.dtype, t.device)
+    with span("fastk.kmatrix_fast_adjoint_batch"):
+        a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
+        z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
+        f = constant_vector(config.freqs_ghz, t.dtype, t.device)
+        elevs = constant_vector(config.elevations_deg, t.dtype, t.device)
 
-    e_hpa = thermo.rho_to_e(rho, t)
-    n_lev = geometry.refractive_index(p, t, e_hpa)                # (B, L)
-    cos_el = torch.cos(torch.deg2rad(elevs))
-    ds = torch.movedim(geometry.chord_lengths(
-        z.T[:, :, None], n_lev.T[:, :, None], cos_el), 0, -1)     # (B, E, K)
+        with span("fastk.geometry"):
+            e_hpa = thermo.rho_to_e(rho, t)
+            n_lev = geometry.refractive_index(p, t, e_hpa)        # (B, L)
+            cos_el = torch.cos(torch.deg2rad(elevs))
+            ds = torch.movedim(geometry.chord_lengths(
+                z.T[:, :, None], n_lev.T[:, :, None], cos_el), 0,
+                -1)                                               # (B, E, K)
+            # ds depends on (t, rho) through refraction; e = rho T Rv / 1e5
+            _, dn_dt, dn_de = geometry.refractive_index_partials(p, t,
+                                                                 e_hpa)
+            dn = {"t": dn_dt + dn_de * thermo.rho_to_e(rho, 1.0),
+                  "rho": dn_de * thermo.rho_to_e(1.0, t)}         # (B, L)
+            dds_dnl, dds_dk = geometry.slant_path_sensitivities(
+                z[:, None], n_lev[:, None], elevs)                # (B, E, K)
+            r0cos = (phys.EARTH_RADIUS + z[:, :1]) * cos_el[None]  # (B, E)
 
-    alpha_mid, d_tm, d_rm = fast_mod.extinction_partials(params, p, t, rho,
-                                                         lwc)     # (B, K, C)
-    g_mid, g_t, g_ds = rte.downwelling_tb_adjoint_mid(
-        alpha_mid.transpose(1, 2), ds, t, f)                      # (B,E,C,.)
+        with span("fastk.partials"):
+            alpha_mid, d_tm, d_rm = fast_mod.extinction_partials(
+                params, p, t, rho, lwc)                           # (B, K, C)
+        with span("fastk.rte_adjoint"):
+            g_mid, g_t, g_ds = rte.downwelling_tb_adjoint_mid(
+                alpha_mid.transpose(1, 2), ds, t, f)              # (B,E,C,.)
 
-    out = {}
-    if "t" in wrt:
-        out["t"] = _spread(g_mid * d_tm.transpose(1, 2)[:, None]) + g_t
-    if "rho" in wrt:
-        out["rho"] = _spread(g_mid * d_rm.transpose(1, 2)[:, None])
-
-    # ds depends on (t, rho) through refraction; e = rho T Rv / 1e5
-    _, dn_dt, dn_de = geometry.refractive_index_partials(p, t, e_hpa)
-    dn = {"t": dn_dt + dn_de * thermo.rho_to_e(rho, 1.0),
-          "rho": dn_de * thermo.rho_to_e(1.0, t)}                 # (B, L)
-    dds_dnl, dds_dk = geometry.slant_path_sensitivities(
-        z[:, None], n_lev[:, None], elevs)                        # (B, E, K)
-    c = _spread(g_ds * dds_dnl[:, :, None])                       # (B,E,C,L)
-    s_k = torch.sum(g_ds * dds_dk[:, :, None], dim=-1)            # (B, E, C)
-    r0cos = (phys.EARTH_RADIUS + z[:, :1]) * cos_el[None]         # (B, E)
-    for name in out:
-        g = c * dn[name][:, None, None, :]
-        g[..., 0] += s_k * (r0cos * dn[name][:, :1])[:, :, None]
-        out[name] = out[name] + g
-    return out
+        with span("fastk.assembly"):
+            out = {}
+            if "t" in wrt:
+                out["t"] = (_spread(g_mid * d_tm.transpose(1, 2)[:, None])
+                            + g_t)
+            if "rho" in wrt:
+                out["rho"] = _spread(g_mid * d_rm.transpose(1, 2)[:, None])
+            c = _spread(g_ds * dds_dnl[:, :, None])               # (B,E,C,L)
+            s_k = torch.sum(g_ds * dds_dk[:, :, None], dim=-1)    # (B, E, C)
+            for name in out:
+                g = c * dn[name][:, None, None, :]
+                g[..., 0] += s_k * (r0cos * dn[name][:, :1])[:, :, None]
+                out[name] = out[name] + g
+            return out
 
 
 def kmatrix_fast_adjoint_single(params, z_m, p_hpa, t_k, rho_gm3, lwc_gm3,

@@ -18,6 +18,10 @@ transform of a plain path runs inside one.
 
   lbl.*       models.lbl.forward_batch
   kmatrix.*   models.jacobians.kmatrix_batch_fast
+  fast.*      models.fast.fast_forward_batch (the fast operator)
+  fastk.*     models.jacobians.kmatrix_fast_adjoint_batch (its closed-form K)
+  oem.*       models.retrieval.retrieve_batch (the 1D-Var retrieval; its
+              oem.forward and oem.jacobian hold the fast.* and fastk.* spans)
   spectral.*  models.spectral.forward_spectral and srf_convolve
   cuda.*      the kernel wrappers of ops/cuda (K1-K6 and the K-matrix's
               slant geometry), on the card only
@@ -33,6 +37,12 @@ SPAN_NAMES = frozenset({
     "lbl.output_layout",
     "kmatrix.kmatrix_batch_fast", "kmatrix.layout", "kmatrix.dalpha_dlwc",
     "kmatrix.slant_geometry", "kmatrix.output_layout",
+    "fast.forward_batch", "fast.layout", "fast.extinction",
+    "fast.refractive_index", "fast.output_layout",
+    "fastk.kmatrix_fast_adjoint_batch", "fastk.geometry", "fastk.partials",
+    "fastk.rte_adjoint", "fastk.assembly",
+    "oem.retrieve_batch", "oem.prior", "oem.forward", "oem.jacobian",
+    "oem.accept", "oem.solve", "oem.dofs",
     "spectral.forward_spectral", "spectral.layout",
     "spectral.slant_geometry", "spectral.chunk", "spectral.srf_convolve",
     "cuda.absorption_lb", "cuda.forward_lb", "cuda.downwelling_lb",

@@ -17,9 +17,8 @@ import torch
 
 from mwr_fast_forward_operators_and_lbls_tpu_torch.data.dataset import (
     Dataset, Variable)
-from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (jacobians,
-                                                                  lbl,
-                                                                  spectral)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+    fast, jacobians, lbl, retrieval, spectral)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import spans
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     absorption, adjoint, geometry, rte)
@@ -87,6 +86,26 @@ def _spectrum():
     return dict(out, srf=spectral.srf_convolve(out["tb"], weights))
 
 
+N_ITER = 2
+
+
+def _retrieve():
+    """The retrieval of 3 profiles from TBs 1 K off the fast operator's,
+    the priors 1 K warmer and 10 % moister."""
+    prof = _profiles()
+    fcfg = fast.FastConfig(freqs_ghz=CFG.freqs_ghz,
+                           elevations_deg=CFG.elevations_deg,
+                           outputs=("tb",))
+    params = fast.fit_closed_form(prof, fcfg)
+    tb = fast.fast_forward_batch(params, prof, fcfg)["tb"] + 1.0
+    ocfg = retrieval.OEMConfig(freqs_ghz=CFG.freqs_ghz,
+                               elevations_deg=CFG.elevations_deg,
+                               n_iter=N_ITER)
+    return retrieval.retrieve_batch(params, tb, prof["z"], prof["p"],
+                                    prof["t"] + 1.0, 1.1 * prof["rho"],
+                                    ocfg, prof["lwc"])
+
+
 def _stage():
     ds = stage.forward_stage(_dataset(), models=("R24",),
                              with_jacobians=True, batch_size=2, device="cpu")
@@ -100,6 +119,7 @@ ENTRIES = {
     "kmatrix_closed_form": _kmatrix(False),
     "spectral": _spectrum,
     "stage": _stage,
+    "retrieve": _retrieve,
 }
 
 # each entry's root spans and, under each root, its child spans in order
@@ -119,6 +139,13 @@ TREES = {
                   + ["spectral.chunk"] * N_CHUNKS),
                  ("spectral.srf_convolve", [])],
     "stage": [("stage.forward_stage", CROP + CROP + ["stage.pull"])],
+    # the observations' fast forward, then the retrieval
+    "retrieve": [("fast.forward_batch", ["fast.extinction"]),
+                 ("oem.retrieve_batch",
+                  ["oem.prior", "oem.forward", "oem.jacobian", "oem.accept"]
+                  + ["oem.solve", "oem.forward", "oem.jacobian",
+                     "oem.accept"] * N_ITER
+                  + ["oem.dofs"])],
 }
 
 
@@ -222,9 +249,22 @@ def test_the_stage_nests_the_entry_points_under_its_enqueue(runs):
                            "kmatrix.kmatrix_batch_fast"] * 2
 
 
+def test_the_retrieval_nests_the_fast_operator_and_its_k(runs):
+    """Each step's forward holds the fast operator's spans (its plain path
+    on the CPU), each Jacobian the closed-form K's."""
+    root = _tree(runs["retrieve"][2])[-1]
+    under = {"oem.forward": [("fast.forward_batch", ["fast.extinction"])],
+             "oem.jacobian": [("fastk.kmatrix_fast_adjoint_batch",
+                               ["fastk.geometry", "fastk.partials",
+                                "fastk.rte_adjoint", "fastk.assembly"])]}
+    for name, _, nodes in root[2]:
+        assert [(n, c) for n, c, _ in nodes] == under.get(name, []), name
+
+
 def test_span_names_name_the_layers():
     layers = {n.split(".")[0] for n in spans.SPAN_NAMES}
-    assert layers == {"lbl", "kmatrix", "spectral", "cuda", "stage"}
+    assert layers == {"lbl", "kmatrix", "spectral", "cuda", "stage", "fast",
+                      "fastk", "oem"}
     wrappers = {n for n in spans.SPAN_NAMES if n.startswith("cuda.")}
     assert wrappers == {f"cuda.{fn.__name__}" for fn in WRAPPERS}
 
