@@ -95,7 +95,10 @@ twenty-five phases, each printing its own lines:
  19. CUDA-event times of fast serving, one distillation step, the fast K
      and the retrieval, with peak device memory, and a `torch.profiler`
      trace of fast serving, of the retrieval and of the K-matrix: device
-     time by kernel and the device's idle share;
+     time by kernel and the device's idle share; the fast K at B=1024: its
+     kernel against the plain version in float64, row by row, and the
+     times (alone and in a graph) of the kernel, its plain version and the
+     entry point through each, beside the least bytes' bound;
  20. the campaign forward stage, `pipeline.forward_stage`: (a) a synthetic
      campaign (3 sondes, one instrument's L1/L2 files) through
      `preprocess_files`, a NetCDF round trip, `distill_on_dataset` and the
@@ -1726,6 +1729,8 @@ def main() -> int:
         _build)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
         OPS as CHAIN_OPS, chain, chain_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.fastk import (
+        fastk_adjoint, fastk_adjoint_reference)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.geometry import (  # noqa: E501
         slant_geometry_lb, slant_geometry_lb_reference)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
@@ -1779,7 +1784,7 @@ def main() -> int:
     for src, name, report in ptxas_report(
             lib_path.with_suffix(".log").read_text()):
         print(f"phase 0: ptxas: {src} {name}: {report}")
-        if src in ("adjoint.cu", "absorption_tangents.cu"):
+        if src in ("adjoint.cu", "absorption_tangents.cu", "fastk.cu"):
             check(not re.search(r"[1-9]\d* bytes spill", report),
                   f"{src} {name} spills: {report}")
     for what, warps, least in (
@@ -2937,6 +2942,51 @@ def main() -> int:
           f"the live tensors; retrieve_batch B={BR} n_iter=3: "
           f"{oem_ms:.4f} ms = {oem_ms / BR:.5f} ms/profile, peak "
           f"{oem_peak:.1f} MiB above the live tensors")
+    # the fast K at the retrieval cell's batch: the kernel alone and the
+    # whole entry point, through the kernel and through the plain path,
+    # beside the least bytes of the fast K (mwrbench/rooflines/oem.py:
+    # z, p, t, rho, lwc and the weights read, K_t and K_rho written)
+    kprof = lbl.demo_batch(B, L, device=dev)
+    plain_kcfg = dataclasses.replace(kcfg, use_kernels=False)
+    fk_in = jacobians.fast_k_inputs(
+        params, fast.batch_arrays(kprof, torch.float32), kcfg.elevations_deg)
+    fk_in = {k: v.contiguous() for k, v in fk_in.items()}
+    fk_bytes = 4.0 * (5 * B * L + 72 * nF + 2 * B * nE * nF * L)
+    fk_bound = {"published": fk_bytes / profiling.DEFAULT_PEAKS["hbm"] * 1e3,
+                "measured": fk_bytes / peaks["hbm"] * 1e3}
+    fastk_adjoint.launches = 0
+    fk_rows = {
+        "kernel": (lambda: fastk_adjoint(kcfg.freqs_ghz, **fk_in)),
+        "plain version": (lambda: fastk_adjoint_reference(kcfg.freqs_ghz,
+                                                          **fk_in)),
+        "entry, kernel": (lambda: jacobians.kmatrix_fast_adjoint_batch(
+            params, kprof, kcfg)),
+        "entry, plain path": (lambda: jacobians.kmatrix_fast_adjoint_batch(
+            params, kprof, plain_kcfg))}
+    fk_launches = fastk_adjoint.launches
+    fk_one = fk_rows["entry, kernel"]()
+    check(fastk_adjoint.launches == fk_launches + 1,
+          "the fast K did not launch its kernel once")
+    fk_want = fastk_adjoint_reference(
+        kcfg.freqs_ghz, **{k: v.double() for k, v in fk_in.items()})
+    fk_err = max(float(((fk_one[n].double() - fk_want[n]).abs().amax(-1)
+                        / fk_want[n].abs().amax(-1).clamp_min(1e-30)).max())
+                 for n in fk_want)
+    print(f"phase 19: fast K kernel at B={B} E={nE} C={nF} L={L}: worst "
+          f"row's max|K - plain float64| / its max|K| {fk_err:.3e} (bound "
+          f"1e-3)")
+    check(fk_err <= 1e-3, f"fast K kernel error {fk_err}")
+    for what, fn in fk_rows.items():
+        ms = timed_ms(fn, repeats=10)
+        g_ms = graph_ms(fn)
+        print(f"phase 19: fast K {what}, B={B}: {ms:.4f} ms, in a graph "
+              f"{g_ms:.4f} ms; bound {fk_bound['published']:.4f} ms by bytes "
+              f"({fk_bytes:.4g} B at the published 3.35e12 B/s; "
+              f"{fk_bound['measured']:.4f} ms at the measured copy rate): "
+              f"share in a graph {fk_bound['published'] / g_ms:.3f}")
+    print(f"phase 19: fast K kernel launches in this phase "
+          f"{fastk_adjoint.launches}")
+    del fk_in, fk_want, fk_one
 
     # ---- phase 20: the campaign forward stage -----------------------------
     counted = {

@@ -25,7 +25,8 @@ The fast operator (`models/fast.py`) has the same structure with layer-mean
 extinction in place of level absorption: `kmatrix_fast_single` and
 `kmatrix_fast_batch` differentiate it with `torch.func.jacrev`;
 `kmatrix_fast_adjoint_batch` (and `..._single`) is its closed form, which the
-retrieval calls once per Gauss-Newton step.
+retrieval calls once per Gauss-Newton step; on CUDA float32 profiles its
+adjoint and assembly are one kernel (`ops/cuda/fastk.py`).
 """
 
 import functools
@@ -33,7 +34,7 @@ import functools
 import torch
 
 from ..constants import physics as phys
-from ..ops import geometry, rte, thermo
+from ..ops import geometry, thermo
 from ..ops.absorption import liquid_absorption
 from ..ops.tensors import constant_vector
 from ..ops.cuda.absorption import (absorption_partials_lb,
@@ -41,6 +42,7 @@ from ..ops.cuda.absorption import (absorption_partials_lb,
 from ..ops.cuda.adjoint import (kmatrix_assembled_lb,
                                 kmatrix_assembled_reference,
                                 kmatrix_assembled_rho_lwc_lb)
+from ..ops.cuda.fastk import fastk_adjoint, fastk_adjoint_reference
 from ..ops.cuda.geometry import slant_geometry_lb, slant_geometry_lb_reference
 from ..ops.spans import span
 from . import fast as fast_mod
@@ -260,13 +262,6 @@ def kmatrix_fast_batch(params, profiles: dict, config=None,
                                                  "lwc")))
 
 
-def _spread(a):
-    """Layer field (..., K) -> level field (..., K + 1): each level takes
-    half of the layers around it, as x_mid = (x_l + x_{l+1}) / 2."""
-    zeros = torch.zeros_like(a[..., :1])
-    return 0.5 * (torch.cat([a, zeros], -1) + torch.cat([zeros, a], -1))
-
-
 def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
                                wrt=("t", "rho")):
     """Closed-form fast-operator K for a batch: every (elevation, channel)
@@ -280,54 +275,62 @@ def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
       3. The refraction geometry's Jacobian is tridiagonal plus a rank-one
          Snell-invariant column (`geometry.slant_path_sensitivities`).
 
+    The geometry and the partials are plain torch.  The adjoint and the
+    assembly are `ops.cuda.fastk`: on CUDA float32 profiles with
+    `config.use_kernels` one launch of its kernel, everywhere else its plain
+    version.  CUDA profiles of another dtype with `use_kernels` raise: the
+    kernel is float32 only.
+
     profiles: dict of (B, L) tensors, in their own dtype and on their own
     device.  Returns {name: (B, E, C, L)} for name in `wrt`, a subset of
     {"t", "rho"}.
     """
     config = config or fast_mod.FastConfig()
     with span("fastk.kmatrix_fast_adjoint_batch"):
-        a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
-        z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
-        f = constant_vector(config.freqs_ghz, t.dtype, t.device)
-        elevs = constant_vector(config.elevations_deg, t.dtype, t.device)
+        dtype = getattr(torch, config.dtype)
+        a = fast_mod.batch_arrays(profiles, dtype)
+        on_card = config.use_kernels and a["t"].is_cuda
+        if on_card and dtype != torch.float32:
+            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
+                             f"{config.dtype!r} (use_kernels=False runs the "
+                             f"plain closed form in any dtype)")
+        k = fast_k_inputs(params, a, config.elevations_deg)
+        if on_card:
+            # contiguous (B, E, K), as the kernel reads the chords along K
+            k["ds"], k["dds_dnl"], k["dds_dk"] = torch.stack(
+                (k["ds"], k["dds_dnl"], k["dds_dk"])).unbind(0)
+            return fastk_adjoint(config.freqs_ghz, **k, wrt=wrt)
+        return fastk_adjoint_reference(config.freqs_ghz, **k, wrt=wrt)
 
-        with span("fastk.geometry"):
-            e_hpa = thermo.rho_to_e(rho, t)
-            n_lev = geometry.refractive_index(p, t, e_hpa)        # (B, L)
-            cos_el = torch.cos(torch.deg2rad(elevs))
-            ds = torch.movedim(geometry.chord_lengths(
-                z.T[:, :, None], n_lev.T[:, :, None], cos_el), 0,
-                -1)                                               # (B, E, K)
-            # ds depends on (t, rho) through refraction; e = rho T Rv / 1e5
-            _, dn_dt, dn_de = geometry.refractive_index_partials(p, t,
-                                                                 e_hpa)
-            dn = {"t": dn_dt + dn_de * thermo.rho_to_e(rho, 1.0),
-                  "rho": dn_de * thermo.rho_to_e(1.0, t)}         # (B, L)
-            dds_dnl, dds_dk = geometry.slant_path_sensitivities(
-                z[:, None], n_lev[:, None], elevs)                # (B, E, K)
-            r0cos = (phys.EARTH_RADIUS + z[:, :1]) * cos_el[None]  # (B, E)
 
-        with span("fastk.partials"):
-            alpha_mid, d_tm, d_rm = fast_mod.extinction_partials(
-                params, p, t, rho, lwc)                           # (B, K, C)
-        with span("fastk.rte_adjoint"):
-            g_mid, g_t, g_ds = rte.downwelling_tb_adjoint_mid(
-                alpha_mid.transpose(1, 2), ds, t, f)              # (B,E,C,.)
-
-        with span("fastk.assembly"):
-            out = {}
-            if "t" in wrt:
-                out["t"] = (_spread(g_mid * d_tm.transpose(1, 2)[:, None])
-                            + g_t)
-            if "rho" in wrt:
-                out["rho"] = _spread(g_mid * d_rm.transpose(1, 2)[:, None])
-            c = _spread(g_ds * dds_dnl[:, :, None])               # (B,E,C,L)
-            s_k = torch.sum(g_ds * dds_dk[:, :, None], dim=-1)    # (B, E, C)
-            for name in out:
-                g = c * dn[name][:, None, None, :]
-                g[..., 0] += s_k * (r0cos * dn[name][:, :1])[:, :, None]
-                out[name] = out[name] + g
-            return out
+def fast_k_inputs(params, a: dict, elevations) -> dict:
+    """What the fast K's adjoint and assembly take (`fastk.fastk_adjoint`),
+    from the (B, L) arrays z, p, t, rho, lwc of `a` at the `elevations`
+    [deg], in their dtype: the slant geometry and the refractive-index
+    partials (span fastk.geometry), then the layer-mean extinction and its
+    partials (fastk.partials)."""
+    z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
+    elevs = constant_vector(elevations, t.dtype, t.device)
+    with span("fastk.geometry"):
+        e_hpa = thermo.rho_to_e(rho, t)
+        n_lev = geometry.refractive_index(p, t, e_hpa)            # (B, L)
+        cos_el = torch.cos(torch.deg2rad(elevs))
+        ds = torch.movedim(geometry.chord_lengths(
+            z.T[:, :, None], n_lev.T[:, :, None], cos_el), 0,
+            -1)                                                   # (B, E, K)
+        # ds depends on (t, rho) through refraction; e = rho T Rv / 1e5
+        _, dn_dt, dn_de = geometry.refractive_index_partials(p, t, e_hpa)
+        dn_t = dn_dt + dn_de * thermo.rho_to_e(rho, 1.0)          # (B, L)
+        dn_rho = dn_de * thermo.rho_to_e(1.0, t)
+        dds_dnl, dds_dk = geometry.slant_path_sensitivities(
+            z[:, None], n_lev[:, None], elevs)                    # (B, E, K)
+        r0cos = (phys.EARTH_RADIUS + z[:, :1]) * cos_el[None]      # (B, E)
+    with span("fastk.partials"):
+        alpha_mid, d_tm, d_rm = fast_mod.extinction_partials(
+            params, p, t, rho, lwc)                               # (B, K, C)
+    return dict(alpha_mid=alpha_mid, d_tm=d_tm, d_rm=d_rm, ds=ds,
+                dds_dnl=dds_dnl, dds_dk=dds_dk, t=t, dn_t=dn_t,
+                dn_rho=dn_rho, r0cos=r0cos)
 
 
 def kmatrix_fast_adjoint_single(params, z_m, p_hpa, t_k, rho_gm3, lwc_gm3,

@@ -10,4 +10,5 @@ launch count and its plain torch version:
   spectral.absorption_spectral       <- csrc/absorption_spectral.cu  (K6)
   chain.chain                        <- csrc/chain.cu                (K7)
   geometry.slant_geometry_lb         <- csrc/geometry.cu    (K geometry)
+  fastk.fastk_adjoint                <- csrc/fastk.cu       (the fast K)
 """

@@ -628,3 +628,153 @@ def kmatrix_chunked(freqs, mode: str, alpha, da, ds, t_k, dds_dnl=None,
         carry_geo = carry_geo + s_k * r0cos[:, None]
     store(0, carry_alpha, carry_planck, carry_geo)
     return [torch.stack(lev, dim=2) for lev in levels]
+
+
+def _warp_scan_up(v):
+    """Inclusive prefix sums over the last axis (32 lanes) in the order of a
+    warp's shuffle-up scan: add the lane `off` below, off = 1, 2, .. 16."""
+    for off in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], -1)
+    return v
+
+
+def _warp_scan_down(v):
+    """Inclusive suffix sums over the last axis (32 lanes) in the order of a
+    warp's shuffle-down scan: add the lane `off` above."""
+    for off in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :-off] + v[..., off:], v[..., -off:]], -1)
+    return v
+
+
+def _warp_sum(v):
+    """The sum over the last axis (32 lanes) in the order of a warp's
+    shuffle-down tree, as lane 0 holds it."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def fastk_warp_walk(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
+                    dn_t, dn_rho, r0cos, wrt=("t", "rho")):
+    """The fast-K kernel's walk (`csrc/fastk.cu`) in plain torch, for every
+    (profile, elevation, channel) column at once: a warp of 32 lanes walks
+    the layers in chunks of 32, lane j of chunk i on layer 32 i + j.
+
+    1. Up: a shuffle-up scan of the layers' opacities, with the opacity of
+       the chunks below carried in, gives T_k below each layer; the lanes
+       sum their layers' share E_k T_k of the radiance.
+    2. Down, from the top chunk: a shuffle-down scan of E_k T_k, with the
+       sum of the chunks above carried in, gives S_k = sum_{j>k} E_j T_j
+       directly, W_k and the layer's terms.  Lane j stores level k + 1 from
+       its layer's top terms and the bottom terms of layer k + 1 (lane
+       j + 1's, or for lane 31 those of the chunk above, carried down).
+       Level 0 takes the bottom terms of layer 0 and the rank-one sum.
+
+    Shapes and outputs as `fastk.fastk_adjoint`; the emission factors are
+    `k5_emission`'s.  Only the order of the sums differs from the plain
+    version.
+    """
+    dtype, dev = t.dtype, t.device
+    batch, lev = t.shape
+    n_lay = lev - 1
+    n_chunks = -(-n_lay // 32)
+    pad = 32 * n_chunks - n_lay
+    x = phys.HK_GHZ * torch.as_tensor(freqs, dtype=dtype,
+                                      device=dev)[None, None, :, None]
+
+    def lanes(a):
+        """(B, E or 1, C or 1, 32 n_chunks), zero past the last layer."""
+        return torch.nn.functional.pad(a, (0, pad))
+
+    def planck(tk):
+        return x / torch.expm1(x / tk)
+
+    def planck_dt(tk):
+        u = x / tk
+        em = torch.expm1(u)
+        return u * u * (em + 1.0) / (em * em)
+
+    tl = t[:, None, None, :]                              # (B, 1, 1, L)
+    b_lev = lanes(planck(tl[..., :-1]))                   # B at level k
+    b_up = lanes(planck(tl[..., 1:]))                     # B at level k + 1
+    bp_up = lanes(planck_dt(tl[..., 1:]))
+    amid = lanes(alpha_mid.transpose(1, 2)[:, None])      # (B, 1, C, .)
+    dsl = lanes(ds[:, :, None])                           # (B, E, 1, .)
+    live = lanes(torch.ones_like(ds[:, :1, None]))        # 1 on a layer
+    d = amid * dsl
+    g_bot, g_top, dg_bot, dg_top = k5_emission(d)
+    zero = torch.zeros_like(d[..., 0])                    # (B, E, C)
+
+    # walk 1, up
+    trans, atm_lanes, carry = [], torch.zeros_like(d[..., :32]), zero
+    for i in range(n_chunks):
+        sl = slice(32 * i, 32 * i + 32)
+        incl = _warp_scan_up(d[..., sl])
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
+                         -1)
+        trans.append(torch.exp(-(carry[..., None] + excl)) * live[..., sl])
+        atm_lanes = atm_lanes + (g_bot[..., sl] * b_lev[..., sl]
+                                 + g_top[..., sl] * b_up[..., sl]) * trans[i]
+        carry = carry + incl[..., 31]
+    trans = torch.cat(trans, -1)
+    atm = _warp_sum(atm_lanes)
+    ctt = planck(torch.as_tensor(phys.T_COSMIC, dtype=dtype))[..., 0] * \
+        torch.exp(-carry)
+    b = atm + ctt
+    lg = torch.log1p(x[..., 0] / b)
+    dtb_dr = (x[..., 0] * x[..., 0] / (b * (b + x[..., 0]) * lg * lg))[...,
+                                                                       None]
+
+    # the layers' terms need S_k, so walk 2 forms them chunk by chunk, down
+    et = (g_bot * b_lev + g_top * b_up) * trans
+    e_prime = (dg_bot * b_lev + dg_top * b_up) * trans
+    dn = {"t": dn_t, "rho": dn_rho}
+    outs = {name: [None] * n_chunks for name in wrt}
+    carry_s = zero
+    carries = {key: zero for key in ("t", "rho", "geo", "planck")}
+    snell = torch.zeros_like(d[..., :32])
+    for i in range(n_chunks - 1, -1, -1):
+        sl = slice(32 * i, 32 * i + 32)
+        rincl = _warp_scan_down(et[..., sl])
+        rexcl = torch.cat([rincl[..., 1:], torch.zeros_like(rincl[..., :1])],
+                          -1)
+        w = e_prime[..., sl] - (carry_s[..., None] + rexcl) - ctt[..., None]
+        carry_s = carry_s + rincl[..., 0]
+        g_mid = dtb_dr * w * dsl[..., sl]
+        g_ds = dtb_dr * w * amid[..., sl]
+        # the layer's bottom (level k) and top (level k + 1) terms, zero
+        # past the last layer
+        own = {"geo": 0.5 * g_ds * lanes(dds_dnl[:, :, None])[..., sl]}
+        snell = snell + g_ds * lanes(dds_dk[:, :, None])[..., sl]
+        for name, part in (("t", d_tm), ("rho", d_rm)):
+            if name in wrt:
+                own[name] = 0.5 * g_mid * lanes(
+                    part.transpose(1, 2)[:, None])[..., sl]
+        bottom_planck = dtb_dr * g_bot[..., sl] * trans[..., sl]
+        top_planck = dtb_dr * g_top[..., sl] * trans[..., sl]
+        own["planck"] = bottom_planck
+
+        def above(key):
+            return torch.cat([own[key][..., 1:], carries[key][..., None]],
+                             -1)
+
+        geo = own["geo"] + above("geo")
+        for name in wrt:
+            k = own[name] + above(name)
+            if name == "t":
+                k = k + (top_planck + above("planck")) * bp_up[..., sl]
+            outs[name][i] = k + geo * lanes(dn[name][..., 1:][:, None,
+                                                               None])[..., sl]
+        carries = {key: own[key][..., 0] if key in own else zero
+                   for key in carries}
+    s_k = _warp_sum(snell)
+    result = {}
+    for name in wrt:
+        lev0 = carries[name] + (carries["geo"] + s_k * r0cos[..., None]) \
+            * dn[name][:, None, None, 0]
+        if name == "t":
+            lev0 = lev0 + carries["planck"] * planck_dt(tl[..., :1])[..., 0]
+        result[name] = torch.cat([lev0[..., None],
+                                  torch.cat(outs[name], -1)[..., :n_lay]],
+                                 -1)
+    return result

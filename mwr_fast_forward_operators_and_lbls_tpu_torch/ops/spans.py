@@ -23,8 +23,8 @@ transform of a plain path runs inside one.
   oem.*       models.retrieval.retrieve_batch (the 1D-Var retrieval; its
               oem.forward and oem.jacobian hold the fast.* and fastk.* spans)
   spectral.*  models.spectral.forward_spectral and srf_convolve
-  cuda.*      the kernel wrappers of ops/cuda (K1-K6 and the K-matrix's
-              slant geometry), on the card only
+  cuda.*      the kernel wrappers of ops/cuda (K1-K6, the K-matrix's
+              slant geometry and the fast K), on the card only
   stage.*     pipeline.forward.forward_stage
 """
 
@@ -48,7 +48,7 @@ SPAN_NAMES = frozenset({
     "cuda.absorption_lb", "cuda.forward_lb", "cuda.downwelling_lb",
     "cuda.absorption_tangents_lb", "cuda.kmatrix_assembled_lb",
     "cuda.kmatrix_assembled_rho_lwc_lb", "cuda.absorption_spectral",
-    "cuda.slant_geometry_lb",
+    "cuda.slant_geometry_lb", "cuda.fastk_adjoint",
     "stage.forward_stage", "stage.screen", "stage.upload", "stage.enqueue",
     "stage.mask", "stage.pull",
 })

@@ -1,0 +1,134 @@
+"""The fast operator's closed-form K on the CPU: the plain version of the
+fast-K kernel (`ops/cuda/fastk.py`) against the kernel's walk in plain torch
+(`_mirrors.fastk_warp_walk`), its routing in
+`jacobians.kmatrix_fast_adjoint_batch`, and the kernel's symbol.  The
+kernel itself runs in the `cuda` tests of `test_torch_kernels.py`."""
+
+import functools
+import re
+
+import pytest
+import torch
+
+from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (fast,
+                                                                  jacobians,
+                                                                  lbl)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+    _build, _mirrors, fastk)
+
+torch.set_num_threads(1)
+
+ELEVS = (90.0, 30.0, 4.2)
+CFG = fast.FastConfig(elevations_deg=ELEVS, outputs=("tb",))
+WRTS = [("t", "rho"), ("t",), ("rho",)]
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(n_levels):
+    """Weights fitted on 24 profiles, plus a random part that drives the
+    regression below zero in some layers, so the clamp of
+    `fast.extinction_partials` zeroes them and their partials."""
+    cfg = fast.FastConfig(outputs=("tb",))
+    w = fast.fit_closed_form(lbl.demo_batch(24, n_levels, device="cpu"),
+                             cfg)["w"]
+    return w + fast.init_params(cfg, scale=1e-3, seed=5, device="cpu")["w"]
+
+
+def _inputs(batch, n_levels, dtype=torch.float64):
+    profiles = lbl.demo_batch(batch, n_levels, seed=7, device="cpu")
+    return jacobians.fast_k_inputs({"w": _weights(n_levels).double()},
+                                   fast.batch_arrays(profiles,
+                                                     torch.float64), ELEVS)
+
+
+def _row_error(got, want):
+    """The largest |got - want| of each (profile, elevation, channel) row
+    over the row's largest |want|, the worst row."""
+    err = (got.double() - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("wrt", WRTS, ids="_".join)
+@pytest.mark.parametrize("n_levels", [2, 33, 60, 180])
+def test_warp_walk_matches_the_plain_version(n_levels, wrt):
+    """The kernel's walk in chunks of 32 layers against the plain version,
+    both in float64: only the order of the sums differs, so 1e-12 of the
+    largest entry; a bound by row would gauge the plain version's own
+    S = atm - cumsum, which cancels near the column top (1.8e-10 of the
+    row's largest |K_rho| in an opaque channel).  L=2 is one layer, L=33
+    one full chunk, L=60 and 180 a part-empty top chunk; the inputs hold
+    layers the clamp zeroes and opacities on both sides of the emission
+    series' threshold."""
+    k = _inputs(5, n_levels)
+    dtau = k["alpha_mid"].transpose(1, 2)[:, None] * k["ds"][:, :, None]
+    if n_levels >= 60:
+        assert bool((dtau < 0.03).any()) and bool((dtau > 0.5).any())
+        assert bool((k["alpha_mid"] == 0).any())
+    want = fastk.fastk_adjoint_reference(CFG.freqs_ghz, **k, wrt=wrt)
+    got = _mirrors.fastk_warp_walk(CFG.freqs_ghz, **k, wrt=wrt)
+    assert set(got) == set(want) == set(wrt)
+    for name in wrt:
+        assert got[name].shape == (5, len(ELEVS), 14, n_levels)
+        err = float((got[name] - want[name]).abs().max())
+        assert err <= 1e-12 * float(want[name].abs().max()), name
+
+
+@pytest.mark.parametrize("n_levels", [60, 180])
+def test_warp_walk_in_float32_meets_the_card_tests_bound(n_levels):
+    """The walk in float32 on float32 inputs against the plain version in
+    float64 on the same inputs, to the card test's bound, 1e-3 of each
+    row's largest |K|; the plain version in float32 takes S = atm - cumsum,
+    which cancels near the column top, and misses it for K_rho."""
+    k = {n: v.float() for n, v in _inputs(9, n_levels).items()}
+    want = fastk.fastk_adjoint_reference(
+        CFG.freqs_ghz, **{n: v.double() for n, v in k.items()})
+    got = _mirrors.fastk_warp_walk(CFG.freqs_ghz, **k)
+    plain = fastk.fastk_adjoint_reference(CFG.freqs_ghz, **k)
+    for name in fastk.FASTK_WRT:
+        assert got[name].dtype == torch.float32
+        assert _row_error(got[name], want[name]) <= 1e-4, name
+    assert _row_error(plain["rho"], want["rho"]) > 1e-3
+
+
+def test_cpu_profiles_never_reach_the_wrapper(monkeypatch):
+    """On the CPU `kmatrix_fast_adjoint_batch` takes the plain version,
+    use_kernels or not, and its outputs are what it computed before the
+    kernel: the plain version on the inputs `fast_k_inputs` gives."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wrapper was called")
+
+    monkeypatch.setattr(jacobians, "fastk_adjoint", refuse)
+    profiles = lbl.demo_batch(3, 40, device="cpu")
+    params = {"w": _weights(40)}
+    for cfg in (CFG, fast.FastConfig(elevations_deg=ELEVS, outputs=("tb",),
+                                     use_kernels=False)):
+        got = jacobians.kmatrix_fast_adjoint_batch(params, profiles, cfg)
+        want = fastk.fastk_adjoint_reference(
+            CFG.freqs_ghz, **jacobians.fast_k_inputs(
+                params, fast.batch_arrays(profiles, torch.float32), ELEVS))
+        for name in fastk.FASTK_WRT:
+            assert torch.equal(got[name], want[name]), name
+
+
+def test_the_wrapper_takes_the_plain_version_on_the_cpu():
+    k = {n: v.float() for n, v in _inputs(2, 20).items()}
+    before = fastk.fastk_adjoint.launches
+    got = fastk.fastk_adjoint(CFG.freqs_ghz, **k, wrt=("rho",))
+    assert fastk.fastk_adjoint.launches == before
+    want = fastk.fastk_adjoint_reference(CFG.freqs_ghz, **k, wrt=("rho",))
+    assert set(got) == {"rho"} and torch.equal(got["rho"], want["rho"])
+
+
+def test_the_kernel_symbol_feeds_no_other_roofline():
+    """The benchmark's trace reader matches kernels by substring, so the
+    kernel's name holds none of the symbols other metrics read; and the
+    entry point has its ctypes row."""
+    src = (_build.CSRC / "fastk.cu").read_text()
+    kernels = re.findall(
+        r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src)
+    assert kernels == ["fastk_adjoint_kernel"]
+    for other in ("downwelling", "kmatrix_kernel", "absorption_",
+                  "spectral_kernel", "slant_geometry_kernel",
+                  "line_state_kernel", "chain"):
+        assert other not in kernels[0]
+    assert "mwr_fastk_adjoint" in _build.SIGNATURES

@@ -31,6 +31,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
     kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
     OPS as CHAIN_OPS, chain, chain_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.fastk import (
+    fastk_adjoint, fastk_adjoint_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.geometry import (
     slant_geometry_lb, slant_geometry_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
@@ -968,6 +970,107 @@ def test_retrieval_on_the_card_runs_the_rte_kernel_each_step(device):
     for name in ("t", "rho"):
         assert float((k_closed[name] - k_auto[name]).abs().max()) <= \
             2e-3 * float(k_auto[name].abs().max())
+
+
+def _fastk_inputs(batch, n_levels, device):
+    """The fast K's kernel inputs on the card: weights fitted on 64
+    profiles plus a random part that drives the regression below zero in
+    some layers (the clamp of `fast.extinction_partials` zeroes them and
+    their partials), the prologue in float64, then rounded to float32."""
+    cfg = fast.FastConfig(outputs=("tb",))
+    w = fast.fit_closed_form(lbl.demo_batch(64, n_levels, device=device),
+                             cfg)["w"]
+    w = w + fast.init_params(cfg, scale=1e-3, seed=5, device=device)["w"]
+    profiles = lbl.demo_batch(batch, n_levels, seed=7, device=device)
+    k = jacobians.fast_k_inputs({"w": w.double()},
+                                fast.batch_arrays(profiles, torch.float64),
+                                cfg.elevations_deg)
+    return cfg, {n: v.float().contiguous() for n, v in k.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrt", [("t", "rho"), ("t",), ("rho",)],
+                         ids="_".join)
+@pytest.mark.parametrize("n_levels", [180, 60])
+@pytest.mark.parametrize("batch", [1, 37, 256])
+def test_fastk_kernel_matches_plain_float64(device, batch, n_levels, wrt):
+    """The fast-K kernel against its plain version run in float64 on the
+    same float32 inputs (in float32 the plain S_k = atm - cumsum cancels
+    near the column top): each (profile, elevation, channel) row to 1e-3
+    of the row's largest |K|, the K-matrix cell's `k_*_rel`, a rounding of
+    the inputs far below the retrieval's noise.  B=37 leaves a block of a
+    profile whose neighbours differ; L=60 a part-empty top chunk of
+    layers; the inputs reach the emission series (opacity < 0.5), the
+    closed form above it, and layers the clamp zeroes."""
+    cfg, k = _fastk_inputs(batch, n_levels, device)
+    dtau = k["alpha_mid"].transpose(1, 2)[:, None] * k["ds"][:, :, None]
+    assert bool((dtau < 0.03).any()) and bool((dtau > 0.5).any())
+    assert bool((k["alpha_mid"] == 0).any())
+    before = fastk_adjoint.launches
+    got = fastk_adjoint(cfg.freqs_ghz, **k, wrt=wrt)
+    assert fastk_adjoint.launches == before + 1
+    want = fastk_adjoint_reference(
+        cfg.freqs_ghz, **{n: v.double() for n, v in k.items()}, wrt=wrt)
+    torch.cuda.synchronize()
+    assert set(got) == set(wrt)
+    for name in wrt:
+        assert got[name].shape == (batch, len(ELEVS), len(FREQS), n_levels)
+        assert got[name].is_contiguous() and bool(
+            torch.isfinite(got[name]).all())
+        err = (got[name].double() - want[name]).abs().amax(-1)
+        scale = want[name].abs().amax(-1)
+        assert bool((err <= 1e-3 * scale).all()), (
+            name, float((err / scale.clamp_min(1e-30)).max()))
+
+
+@pytest.mark.cuda
+def test_fast_k_path_launches_the_kernel_once(device):
+    """`kmatrix_fast_adjoint_batch` on CUDA float32 profiles launches the
+    kernel once, with no fallback, and agrees with the plain path in
+    float64 within the retrieval test's 2e-3 of max |K| (the float32
+    geometry of the prologue is in both); use_kernels=False takes the plain
+    path on the card, and float64 profiles with use_kernels raise."""
+    profiles = lbl.demo_batch(33, 180, device=device)
+    cfg = fast.FastConfig(outputs=("tb",))
+    params = fast.fit_closed_form(profiles, cfg)
+    before = fastk_adjoint.launches
+    got = jacobians.kmatrix_fast_adjoint_batch(params, profiles, cfg)
+    assert fastk_adjoint.launches == before + 1
+    want = jacobians.kmatrix_fast_adjoint_batch(
+        params, profiles, dataclasses.replace(cfg, dtype="float64",
+                                              use_kernels=False))
+    assert fastk_adjoint.launches == before + 1
+    for name in ("t", "rho"):
+        assert got[name].dtype == torch.float32
+        assert float((got[name].double() - want[name]).abs().max()) <= \
+            2e-3 * float(want[name].abs().max()), name
+    with pytest.raises(ValueError, match="float32 only"):
+        jacobians.kmatrix_fast_adjoint_batch(
+            params, profiles, dataclasses.replace(cfg, dtype="float64"))
+    assert fastk_adjoint.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_fastk_wrapper_refuses_what_the_kernel_does_not_take(device):
+    cfg, k = _fastk_inputs(4, 20, device)
+    with pytest.raises(TypeError):
+        fastk_adjoint(cfg.freqs_ghz, **dict(k, alpha_mid=k["alpha_mid"]
+                                            .double()))
+    with pytest.raises(ValueError):
+        fastk_adjoint(cfg.freqs_ghz, **dict(k, ds=k["ds"][:, :, 1:]))
+    with pytest.raises(ValueError):
+        fastk_adjoint(cfg.freqs_ghz, **dict(
+            k, ds=k["ds"].transpose(1, 2).contiguous().transpose(1, 2)))
+    with pytest.raises(ValueError):
+        fastk_adjoint(cfg.freqs_ghz + cfg.freqs_ghz, **k)
+    with pytest.raises(ValueError):
+        fastk_adjoint(cfg.freqs_ghz, **k, wrt=("lwc",))
+    # t may be a slice of a wider state, rows apart, as the retrieval's is
+    wide = torch.cat([k["t"], k["t"]], dim=1)
+    sliced = fastk_adjoint(cfg.freqs_ghz, **dict(k, t=wide[:, :20]))
+    whole = fastk_adjoint(cfg.freqs_ghz, **k)
+    for name in whole:
+        assert torch.equal(sliced[name], whole[name])
 
 
 @pytest.mark.cuda

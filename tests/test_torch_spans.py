@@ -4,8 +4,8 @@ On the CPU each batched entry point runs once under
 `parallel.profiling.trace` and once without a profiler: the spans nest under
 the entry's span in the order of the code, every name is in `SPAN_NAMES`,
 and the outputs are the same bits either way.  The test marked `cuda`
-checks on the card that each kernel K1-K6, and the K-matrix's geometry
-kernel, is launched inside its wrapper's `cuda.*` span.
+checks on the card that each kernel K1-K6, the K-matrix's geometry kernel
+and the fast K's kernel, is launched inside its wrapper's `cuda.*` span.
 """
 
 import contextlib
@@ -21,7 +21,7 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
     fast, jacobians, lbl, retrieval, spectral)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import spans
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
-    absorption, adjoint, geometry, rte)
+    absorption, adjoint, fastk, geometry, rte)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     spectral as k6)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import profiling
@@ -279,6 +279,7 @@ WRAPPERS = {
     adjoint.kmatrix_assembled_rho_lwc_lb: ("kmatrix_kernel",),
     k6.absorption_spectral: ("line_state_kernel", "spectral_kernel"),
     geometry.slant_geometry_lb: ("slant_geometry_kernel",),
+    fastk.fastk_adjoint: ("fastk_adjoint_kernel",),
 }
 
 
@@ -289,12 +290,15 @@ def test_each_kernel_is_launched_inside_its_wrapper_span(tmp_path):
     dev = torch.device("cuda", 0)
     prof = _profiles(8, dev)
     cfg = lbl.LBLConfig(outputs=("tb",))
+    fcfg = fast.FastConfig(outputs=("tb",))
+    params = fast.init_params(fcfg, device=dev)
 
     def calls():
         lbl.forward_batch(prof, cfg)
         jacobians.kmatrix_batch_fast(prof, cfg)
         spectral.forward_spectral(prof, torch.from_numpy(GRID).to(dev),
                                   (90.0,), "R24", freq_chunk=CHUNK)
+        jacobians.kmatrix_fast_adjoint_batch(params, prof, fcfg)
 
     calls()                                     # builds and warms up
     torch.cuda.synchronize()
