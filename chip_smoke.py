@@ -562,11 +562,11 @@ def forward_stage_phase(dev, fb_rate, counted):
           + "; ".join(f"{k} {v:.3e}" for k, v in bs_err.items()))
     check(all(v <= stage_tolerance(k, out[k]) for k, v in bs_err.items()),
           f"batch_size dependence {bs_err}")
-    plain = stage_outputs(stage(with_jacobians=False, fused=False))
+    plain = stage_outputs(stage(with_jacobians=False, use_kernels=False))
     plain_err = {k: float(np.abs(plain[k] - out[k]).max())
                  for k in plain if k.startswith("TBs_")}
     del plain
-    print("phase 20: max|kernels - plain path (fused=False) on the card|: "
+    print("phase 20: max|kernels - plain path (use_kernels=False) on the card|: "
           + "; ".join(f"{k} {v:.3e} K" for k, v in plain_err.items())
           + " (bound 1e-2)")
     check(max(plain_err.values()) <= 1e-2, f"stage vs plain {plain_err}")
@@ -594,8 +594,8 @@ def forward_stage_phase(dev, fb_rate, counted):
         torch.cuda.synchronize()
         t_upload.append(time.perf_counter() - t0)
     t_upload = statistics.median(t_upload)
-    tables = fwd._stage_tables(STAGE_MODELS, True, dev)
     res = fwd._allocate(n, L, STAGE_MODELS, True, True, dev)
+    tables = fwd._stage_tables(STAGE_MODELS, True, res)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for crop, (p, r) in enumerate(ups):
@@ -2110,8 +2110,8 @@ def main() -> int:
     alpha, da_t, da_rho = absorption_tangents_lb(*k4_args["R24"])
     da = {"t": da_t, "rho": da_rho,
           "lwc": jacobians._dalpha_dlwc(cfg_k, kprof["t"])}
-    geom = jacobians._slant_geometry(kprof, cfg_k, ("t", "rho"))
     geom_args = (elevs, kprof["z"], kprof["p"], kprof["t"], kprof["rho"])
+    geom = slant_geometry_lb(*geom_args)
     geom_ref = slant_geometry_lb_reference(*geom_args)
     torch.cuda.synchronize()
     geom_ulps = {k: max_ulps(geom[k], geom_ref[k])

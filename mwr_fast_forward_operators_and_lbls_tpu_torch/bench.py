@@ -71,6 +71,7 @@ from .models import fast, jacobians, lbl, retrieval, spectral
 from .ops import geometry, thermo
 from .ops.cuda.absorption import absorption_tangents_lb
 from .ops.cuda.adjoint import kmatrix_assembled_lb
+from .ops.cuda.geometry import slant_geometry_lb
 from .ops.cuda.spectral import absorption_spectral
 from .ops.tensors import resolve_device
 from .parallel import profiling
@@ -267,7 +268,8 @@ def bench_kmatrix(device) -> Run:
         lambda *a: absorption_tangents_lb(freqs, *a, cfg.model),
         tangent_args, device)
     alpha, da_t, _ = tangents
-    g = jacobians._slant_geometry(lev, cfg, ["t", "rho"])
+    g = slant_geometry_lb(cfg.elevations_deg, *(lev[k] for k in
+                                                ("z", "p", "t", "rho")))
     adjoint_args = (alpha, da_t, g["ds"], lev["t"], g["dds_dnl"],
                     g["dds_dk"], g["dn"]["t"], g["r0cos"])
     t_adj, k_t = _timed(
@@ -396,7 +398,7 @@ def bench_forward_stage(device, headline_rate: float) -> Run:
 
     def stage(compress):
         return stage_mod.forward_stage(
-            ds, models=STAGE_MODELS, batch_size=STAGE_BATCH, fused=True,
+            ds, models=STAGE_MODELS, batch_size=STAGE_BATCH,
             compress_upload=compress, device=device)
 
     walls, outs = {}, {}
@@ -410,9 +412,9 @@ def bench_forward_stage(device, headline_rate: float) -> Run:
 
     raw0, _ = stage_mod._screen(preprocess.profiles_for_forward(ds, crop=0))
     payload, _ = stage_mod._upload(raw0, False, device)
-    tables = stage_mod._stage_tables(STAGE_MODELS, True, device)
     res = stage_mod._allocate(N_STAGE_TIME, N_LEVELS, STAGE_MODELS, False,
                               False, device)
+    tables = stage_mod._stage_tables(STAGE_MODELS, True, res)
     stage_dev_s, _ = _timed(
         "stage_device",
         lambda d: stage_mod._stage_device(d, None, None, STAGE_MODELS, True,

@@ -12,14 +12,14 @@ hat basis over log-pressure: 18 x 4 = 72 features, linear in the weights
 
     profiles (B, L) x elevations (E) x channels (C)  ->  TB (B, E, C)
 
-`fast_forward_batch` runs the plain batched path on any device and dtype.  On
-CUDA float32 profiles with `FastConfig.use_kernels` it runs the serving path:
-one transpose to the (L, B) layout, the features as (72, L-1, B), one matrix
-product landing as (C, L-1, B), the refractive index, then geometry and RTE
-in kernel K2 on the layer-mean extinction (`ops/cuda/rte.py::forward_lb` with
-`alpha_is_mid`).  The serving path has no backward; training
-(`distill_loss`, `train_step`, `distill`) differentiates the plain path.
-The teacher's targets come from the LBL absorption (kernel K1 on the card).
+`fast_forward_batch` is one pipeline: one transpose to the (L, B) layout,
+the features as (72, L-1, B), one matrix product landing as (C, L-1, B), the
+refractive index, then geometry and RTE on the layer-mean extinction
+(`ops/cuda/rte.py::forward_lb` with `alpha_is_mid`): kernel K2, or its plain
+version by the rule of `ops.cuda.launches`.  K2 has no backward; training
+(`distill_loss`, `train_step`, `distill`) passes use_kernels=False and
+differentiates the plain version.  The teacher's targets come from the LBL
+absorption (kernel K1 where it launches).
 """
 
 import contextlib
@@ -32,7 +32,7 @@ from torch import nn
 from ..constants import hatpro
 from ..data import preprocess
 from ..ops import geometry, rte, thermo
-from ..ops.cuda.absorption import absorption_lb, absorption_lb_reference
+from ..ops.cuda.absorption import absorption_lb
 from ..ops.cuda.rte import forward_lb
 from ..ops.spans import span
 from ..ops.tensors import (constant_vector, input_device,
@@ -54,9 +54,9 @@ class FastConfig:
     elevations_deg: tuple = tuple(hatpro.ELEVATIONS_DEG.tolist())
     teacher_model: str = "R24"
     dtype: str = "float32"
-    # Serve through kernel K2 on CUDA float32 profiles, and compute the
-    # teacher's targets with kernel K1.  False runs the plain torch versions
-    # on any device.
+    # Passed to the kernels' wrappers (`ops.cuda.launches`): K2 serves and
+    # K1 computes the teacher's targets where they launch.  False runs the
+    # plain torch versions on any device.
     use_kernels: bool = True
     outputs: tuple = ("tb", "tau_total", "t_mr", "trans_level")
 
@@ -235,44 +235,6 @@ def batch_arrays(profiles: dict, dtype) -> dict:
     return out
 
 
-def fast_forward_batch(params: dict, profiles: dict,
-                       config: FastConfig = FastConfig()) -> dict:
-    """Batched fast forward: dict of (B, L) profiles -> the outputs named in
-    `config.outputs`: tb, tau_total, t_mr (B, E, C), trans_level
-    (B, E, C, L).
-
-    CUDA float32 profiles with `config.use_kernels` take the serving path
-    through kernel K2, which has no backward; everything else takes the
-    plain batched path.  CUDA profiles of another dtype with `use_kernels`
-    raise: the kernel is float32 only.
-    """
-    with span("fast.forward_batch"):
-        dtype = getattr(torch, config.dtype)
-        a = batch_arrays(profiles, dtype)
-        if config.use_kernels and a["p"].is_cuda:
-            if dtype != torch.float32:
-                raise ValueError(f"the CUDA kernels are float32 only; got "
-                                 f"dtype {config.dtype!r} (use_kernels=False "
-                                 f"runs the plain torch path in any dtype)")
-            return _fast_forward_batch_kernels(params, a, config)
-        return _fast_forward_batch_plain(params, a, config)
-
-
-def _fast_forward_batch_plain(params, a: dict, config: FastConfig) -> dict:
-    z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
-    f = constant_vector(config.freqs_ghz, t.dtype, t.device)
-    with span("fast.extinction"):
-        alpha = predict_extinction(params, p, t, rho, lwc)      # (B, L-1, C)
-    e_hpa = thermo.rho_to_e(rho, t)
-    ds = torch.stack([geometry.slant_path_lengths_lb(z.T, p.T, t.T, e_hpa.T,
-                                                     el)
-                      for el in config.elevations_deg])         # (E, L-1, B)
-    dtau = (alpha.transpose(1, 2)[:, None]
-            * ds.permute(2, 0, 1)[:, :, None])                  # (B,E,C,L-1)
-    out = rte.downwelling_tb_from_dtau(dtau, t[:, None, None, :], f)
-    return {k: v for k, v in out.items() if k in config.outputs}
-
-
 def serving_extinction(params: dict, p, t, rho, lwc):
     """Layer-mean extinction (C, L-1, B) from level-major (L, B) arrays: the
     features as (72, L-1, B), then one (C, 72) x (72, (L-1) B) product in
@@ -284,25 +246,34 @@ def serving_extinction(params: dict, p, t, rho, lwc):
     return torch.clamp_min(alpha, 0.0).reshape(-1, *x.shape[1:])
 
 
-def _fast_forward_batch_kernels(params, a: dict, config: FastConfig) -> dict:
-    """The serving path in the level-major layout: one transpose in, the
-    extinction already in the (C, L-1, B) layout K2 reads, one permute per
-    output back to the public layout."""
-    with span("fast.layout"):
-        z, p, t, rho, lwc = torch.stack(
-            [a[k] for k in ("z", "p", "t", "rho", "lwc")]).transpose(
-                1, 2).contiguous().unbind(0)                    # each (L, B)
-    with span("fast.extinction"):
-        alpha_mid = serving_extinction(params, p, t, rho, lwc)
-    with span("fast.refractive_index"):
-        n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
-    stacked = forward_lb(config.freqs_ghz, config.elevations_deg, alpha_mid,
-                         z, n, t, alpha_is_mid=True,
-                         want_trans_level="trans_level" in config.outputs)
-    with span("fast.output_layout"):
-        return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"
-                    else v.permute(2, 0, 1)).contiguous()
-                for k, v in stacked.items() if k in config.outputs}
+def fast_forward_batch(params: dict, profiles: dict,
+                       config: FastConfig = FastConfig()) -> dict:
+    """Batched fast forward: dict of (B, L) profiles -> the outputs named in
+    `config.outputs`: tb, tau_total, t_mr (B, E, C), trans_level
+    (B, E, C, L).
+
+    One transpose in, the extinction already in the (C, L-1, B) layout K2
+    reads, then K2 or its plain version (`config.use_kernels`), one permute
+    per output back to the public layout.
+    """
+    with span("fast.forward_batch"):
+        a = batch_arrays(profiles, getattr(torch, config.dtype))
+        with span("fast.layout"):
+            z, p, t, rho, lwc = torch.stack(
+                [a[k] for k in ("z", "p", "t", "rho", "lwc")]).transpose(
+                    1, 2).contiguous().unbind(0)                # each (L, B)
+        with span("fast.extinction"):
+            alpha_mid = serving_extinction(params, p, t, rho, lwc)
+        with span("fast.refractive_index"):
+            n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
+        stacked = forward_lb(config.freqs_ghz, config.elevations_deg,
+                             alpha_mid, z, n, t, alpha_is_mid=True,
+                             want_trans_level="trans_level" in config.outputs,
+                             use_kernels=config.use_kernels)
+        with span("fast.output_layout"):
+            return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"
+                        else v.permute(2, 0, 1)).contiguous()
+                    for k, v in stacked.items() if k in config.outputs}
 
 
 # ---------------------------------------------------------------------------
@@ -312,14 +283,13 @@ def _fast_forward_batch_kernels(params, a: dict, config: FastConfig) -> dict:
 def teacher_layer_extinction(profiles: dict,
                              config: FastConfig = FastConfig()):
     """LBL layer-mean extinction targets (B, L-1, C) [Np/km]: the teacher
-    release's absorption at the levels (kernel K1 on CUDA float32 profiles),
+    release's absorption at the levels (kernel K1 where it launches),
     averaged over each layer."""
     lev = lbl.level_major_profiles(
         profiles, lbl.LBLConfig(dtype=config.dtype))
-    on_card = config.use_kernels and lev["p"].is_cuda
-    absorb = absorption_lb if on_card else absorption_lb_reference
-    alpha = absorb(config.freqs_ghz, lev["p"], lev["t"], lev["rho"],
-                   lev["lwc"], config.teacher_model)            # (C, L, B)
+    alpha = absorption_lb(config.freqs_ghz, lev["p"], lev["t"], lev["rho"],
+                          lev["lwc"], config.teacher_model,
+                          use_kernels=config.use_kernels)       # (C, L, B)
     return (0.5 * (alpha[:, :-1] + alpha[:, 1:])).permute(2, 1, 0)
 
 
@@ -350,7 +320,7 @@ def fit_closed_form(profiles: dict, config: FastConfig = FastConfig(),
 def distill_loss(params: dict, profiles: dict, targets,
                  config: FastConfig = FastConfig()):
     """TB-space L2 loss against precomputed teacher TBs (B, E, C), through
-    the plain path (the one autograd can differentiate)."""
+    K2's plain version (which autograd can differentiate)."""
     plain = dataclasses.replace(config, use_kernels=False, outputs=("tb",))
     pred = fast_forward_batch(params, profiles, plain)["tb"]
     return torch.mean((pred - targets) ** 2)

@@ -16,17 +16,19 @@ elevation, stacked to (B, E, F, L) for a batch, as in the JAX package's
      (`geometry.chord_sensitivities`),
 
 and assembles K_x[e, f, l] = dTB/dalpha[e, f, l] dalpha[f, l]/dx[l] plus the
-direct Planck (t) and refraction-geometry (t, rho, p) terms.  On CUDA float32
-profiles with wrt within {t, rho, lwc} it runs the kernels: K4 gives alpha
-and both tangent fields in one dual-number pass, one more kernel the float64
-slant geometry, K5 the adjoint with the assembly folded in.
+direct Planck (t) and refraction-geometry (t, rho, p) terms.  For wrt within
+{t, rho, lwc} it runs the kernels' pipeline: K4 gives alpha and both
+tangent fields in one dual-number pass, one more kernel the float64 slant
+geometry, K5 the adjoint with the assembly folded in, each kernel or its
+plain version by the rule of `ops.cuda.launches`; wrt with "p" takes the
+plain closed form.
 
 The fast operator (`models/fast.py`) has the same structure with layer-mean
 extinction in place of level absorption: `kmatrix_fast_single` and
 `kmatrix_fast_batch` differentiate it with `torch.func.jacrev`;
 `kmatrix_fast_adjoint_batch` (and `..._single`) is its closed form, which the
-retrieval calls once per Gauss-Newton step; on CUDA float32 profiles its
-adjoint and assembly are one kernel (`ops/cuda/fastk.py`).
+retrieval calls once per Gauss-Newton step; its adjoint and assembly are
+one kernel (`ops/cuda/fastk.py`).
 """
 
 import functools
@@ -42,8 +44,8 @@ from ..ops.cuda.absorption import (absorption_partials_lb,
 from ..ops.cuda.adjoint import (kmatrix_assembled_lb,
                                 kmatrix_assembled_reference,
                                 kmatrix_assembled_rho_lwc_lb)
-from ..ops.cuda.fastk import fastk_adjoint, fastk_adjoint_reference
-from ..ops.cuda.geometry import slant_geometry_lb, slant_geometry_lb_reference
+from ..ops.cuda.fastk import fastk_adjoint
+from ..ops.cuda.geometry import slant_geometry_lb
 from ..ops.spans import span
 from . import fast as fast_mod
 from . import lbl
@@ -51,8 +53,6 @@ from .lbl import LBLConfig
 
 # the variables the kernels' pipeline differentiates
 LANES_WRT = frozenset({"t", "rho", "lwc"})
-# the refractive-index partials the geometry kernel writes
-GEOMETRY_WRT = frozenset({"t", "rho"})
 
 
 def kmatrix_single(z_m, p_hpa, t_k, rho_gm3, lwc_gm3, f_ghz, elevation_deg,
@@ -91,38 +91,21 @@ def kmatrix_batch(profiles: dict, config: LBLConfig = LBLConfig(),
 
 
 def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
-                       wrt=("t", "rho", "lwc"), fused=None, tables=None):
+                       wrt=("t", "rho", "lwc"), tables=None):
     """Batched K-matrix through the closed-form adjoint: dict of (B, L)
     profiles -> {name: (B, E, F, L)} for each name of `wrt` in
     {"t", "rho", "lwc", "p"}.
 
-    fused=None takes the kernels' pipeline (`_kmatrix_batch_fused_lanes`)
-    for CUDA profiles with `config.use_kernels` and wrt within {t, rho,
-    lwc}, and the plain closed-form path otherwise (on any device, and
-    always when wrt has "p").  fused=True runs the pipeline on any device:
-    on CPU tensors its wrappers take their plain versions.  The kernels are
-    float32 only: CUDA profiles in another dtype need use_kernels=False.
-    `tables` is the packed line table of K4 (`line_tables(model, False,
-    device)`), built and cached when None.
+    wrt within {t, rho, lwc} takes the kernels' pipeline
+    (`_kmatrix_batch_fused_lanes`), each stage its kernel or its plain
+    version by `config.use_kernels`; wrt with "p" takes the plain closed
+    form (`_kmatrix_batch_closed_form`).  `tables` is the packed line table
+    of K4 (`line_tables(model, False, device)`), built and cached when None.
     """
     with span("kmatrix.kmatrix_batch_fast"):
         with span("kmatrix.layout"):
             lev = lbl.level_major_profiles(profiles, config)
-        on_card = lev["t"].is_cuda and config.use_kernels
-        if on_card and lev["t"].dtype != torch.float32:
-            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
-                             f"{config.dtype!r} (use_kernels=False runs the "
-                             f"plain closed form in any dtype)")
-        if fused is None:
-            fused = on_card and set(wrt) <= LANES_WRT
-        if fused:
-            if not set(wrt) <= LANES_WRT:
-                raise ValueError(f"the fused K-matrix takes wrt within "
-                                 f"{sorted(LANES_WRT)}, got {wrt}")
-            if not config.use_kernels:
-                raise ValueError("the fused K-matrix runs the kernels' "
-                                 "wrappers; use_kernels=False takes the plain "
-                                 "closed form")
+        if set(wrt) <= LANES_WRT:
             k = _kmatrix_batch_fused_lanes(lev, config, wrt, tables)
         else:
             k = _kmatrix_batch_closed_form(lev, config, wrt)
@@ -139,60 +122,42 @@ def _dalpha_dlwc(config: LBLConfig, t):
                              torch.ones_like(t)[None])
 
 
-def _slant_geometry(lev: dict, config: LBLConfig, names) -> dict:
-    """Slant paths ds and their sensitivities dds_dnl, dds_dk
-    (E, L-1, B), r0cos = (R_E + z_0) cos(el) (E, B), and dn
-    {name: d(refractive index)/d(name) (L, B)} for each of `names` in
-    {"t", "rho", "p"}, through e = rho T Rv / 1e5.
-
-    Computed in float64 and returned in the profiles' dtype
-    (`slant_geometry_lb_reference` says why).  CUDA float32 profiles with
-    `config.use_kernels` and names within {t, rho} take the geometry kernel
-    (one launch); every other call the plain version.
-    """
-    args = (config.elevations_deg,) + tuple(lev[k] for k in ("z", "p", "t",
-                                                             "rho"))
-    t = lev["t"]
-    if (t.is_cuda and t.dtype == torch.float32 and config.use_kernels
-            and set(names) <= GEOMETRY_WRT):
-        g = slant_geometry_lb(*args)
-        return dict(g, dn={name: g["dn"][name] for name in names})
-    return slant_geometry_lb_reference(*args, names=names)
-
-
 def _kmatrix_batch_fused_lanes(lev: dict, config: LBLConfig, wrt, tables):
     """The kernels' K-matrix pipeline in the level-major (L, B) layout.
 
     One dual-number pass of K4 gives alpha and its T and rho tangents; the
-    geometry kernel the chords and their sensitivities (`_slant_geometry`);
+    geometry kernel the chords and their sensitivities;
     K5 then writes each requested K (E, F, L, B) with the closed-form
     adjoint and both direct terms folded in: t alone, and rho with lwc from
-    one shared adjoint core when all three are asked for.  On CPU tensors
-    the wrappers run their plain versions.
+    one shared adjoint core when all three are asked for.
     """
-    freqs, t = config.freqs_ghz, lev["t"]
+    freqs, t, kern = config.freqs_ghz, lev["t"], config.use_kernels
     alpha, da_t, da_rho = absorption_tangents_lb(
         freqs, lev["p"], t, lev["rho"], lev["lwc"], config.model,
-        tables=tables)
+        tables=tables, use_kernels=kern)
     da = {"t": da_t, "rho": da_rho}
     if "lwc" in wrt:
         with span("kmatrix.dalpha_dlwc"):
             da["lwc"] = _dalpha_dlwc(config, t)
     with span("kmatrix.slant_geometry"):
-        g = _slant_geometry(lev, config, [n for n in wrt if n != "lwc"])
+        g = slant_geometry_lb(config.elevations_deg, lev["z"], lev["p"], t,
+                              lev["rho"], [n for n in wrt if n != "lwc"],
+                              use_kernels=kern)
     geo = (g["dds_dnl"], g["dds_dk"])
     if set(wrt) == LANES_WRT:
         k_t = kmatrix_assembled_lb(freqs, "t", alpha, da["t"], g["ds"], t,
-                                   *geo, g["dn"]["t"], g["r0cos"])
+                                   *geo, g["dn"]["t"], g["r0cos"],
+                                   use_kernels=kern)
         k_rho, k_lwc = kmatrix_assembled_rho_lwc_lb(
             freqs, alpha, da["rho"], da["lwc"], g["ds"], t, *geo,
-            g["dn"]["rho"], g["r0cos"])
+            g["dn"]["rho"], g["r0cos"], use_kernels=kern)
         return {"t": k_t, "rho": k_rho, "lwc": k_lwc}
     return {name: kmatrix_assembled_lb(freqs, name, alpha, da[name],
-                                       g["ds"], t)
+                                       g["ds"], t, use_kernels=kern)
             if name == "lwc" else
             kmatrix_assembled_lb(freqs, name, alpha, da[name], g["ds"], t,
-                                 *geo, g["dn"][name], g["r0cos"])
+                                 *geo, g["dn"][name], g["r0cos"],
+                                 use_kernels=kern)
             for name in wrt}
 
 
@@ -208,7 +173,9 @@ def _kmatrix_batch_closed_form(lev: dict, config: LBLConfig, wrt) -> dict:
         with span("kmatrix.dalpha_dlwc"):
             da["lwc"] = _dalpha_dlwc(config, lev["t"])
     with span("kmatrix.slant_geometry"):
-        g = _slant_geometry(lev, config, geo_wrt)
+        g = slant_geometry_lb(config.elevations_deg, lev["z"], lev["p"],
+                              lev["t"], lev["rho"], geo_wrt,
+                              use_kernels=config.use_kernels)
     return kmatrix_assembled_reference(
         config.freqs_ghz, alpha, {n: da[n] for n in wrt}, g["ds"], lev["t"],
         g["dds_dnl"], g["dds_dk"], g["dn"], g["r0cos"])
@@ -276,10 +243,8 @@ def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
          Snell-invariant column (`geometry.slant_path_sensitivities`).
 
     The geometry and the partials are plain torch.  The adjoint and the
-    assembly are `ops.cuda.fastk`: on CUDA float32 profiles with
-    `config.use_kernels` one launch of its kernel, everywhere else its plain
-    version.  CUDA profiles of another dtype with `use_kernels` raise: the
-    kernel is float32 only.
+    assembly are `ops.cuda.fastk.fastk_adjoint`: one launch of its kernel,
+    or its plain version, by `config.use_kernels`.
 
     profiles: dict of (B, L) tensors, in their own dtype and on their own
     device.  Returns {name: (B, E, C, L)} for name in `wrt`, a subset of
@@ -287,20 +252,10 @@ def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
     """
     config = config or fast_mod.FastConfig()
     with span("fastk.kmatrix_fast_adjoint_batch"):
-        dtype = getattr(torch, config.dtype)
-        a = fast_mod.batch_arrays(profiles, dtype)
-        on_card = config.use_kernels and a["t"].is_cuda
-        if on_card and dtype != torch.float32:
-            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
-                             f"{config.dtype!r} (use_kernels=False runs the "
-                             f"plain closed form in any dtype)")
+        a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
         k = fast_k_inputs(params, a, config.elevations_deg)
-        if on_card:
-            # contiguous (B, E, K), as the kernel reads the chords along K
-            k["ds"], k["dds_dnl"], k["dds_dk"] = torch.stack(
-                (k["ds"], k["dds_dnl"], k["dds_dk"])).unbind(0)
-            return fastk_adjoint(config.freqs_ghz, **k, wrt=wrt)
-        return fastk_adjoint_reference(config.freqs_ghz, **k, wrt=wrt)
+        return fastk_adjoint(config.freqs_ghz, **k, wrt=wrt,
+                             use_kernels=config.use_kernels)
 
 
 def fast_k_inputs(params, a: dict, elevations) -> dict:

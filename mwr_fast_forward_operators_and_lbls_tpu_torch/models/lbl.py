@@ -8,8 +8,8 @@ ground -> top (ascending z); `flip_profile` reverses the level axis.
 
 `forward_batch` transposes the profiles once to the (L, B) layout and runs
 three stages: absorption (kernel K1), the refractive index (plain torch) and
-geometry + RTE (kernel K2).  On CUDA tensors the stages launch the kernels;
-on CPU tensors, or with `use_kernels=False`, they run the plain versions.
+geometry + RTE (kernel K2).  Each kernel stage launches or runs its plain
+version by the rule of `ops.cuda.launches`, given `LBLConfig.use_kernels`.
 """
 
 import dataclasses
@@ -22,9 +22,8 @@ from torch import nn
 from ..constants import CLIMATOLOGIES, hatpro
 from ..ops import geometry, rte, thermo
 from ..ops.absorption import total_absorption
-from ..ops.cuda.absorption import (absorption_lb, absorption_lb_reference,
-                                   line_tables)
-from ..ops.cuda.rte import forward_lb, forward_lb_reference
+from ..ops.cuda.absorption import absorption_lb, line_tables
+from ..ops.cuda.rte import forward_lb
 from ..ops.spans import span
 from ..ops.tensors import input_device, resolve_device
 
@@ -38,8 +37,8 @@ class LBLConfig:
     elevations_deg: tuple = tuple(hatpro.ELEVATIONS_DEG.tolist())
     include_liquid: bool = True
     dtype: str = "float32"
-    # Launch the CUDA kernels on CUDA tensors (they are float32 only).  False
-    # runs the plain torch versions on any device, for comparisons.
+    # Passed to the kernels' wrappers (`ops.cuda.launches`): False runs the
+    # plain torch versions on any device, for comparisons.
     use_kernels: bool = True
     # trans_level is (B, E, F, L), by far the largest output; ask only for
     # what is needed.
@@ -115,9 +114,8 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
 
     profiles: "z" [m], "p" [hPa], "t" [K], "rho" [g/m^3], optionally "lwc"
       [g/m^3] and "o3_ppmv"; each (B, L), levels ground -> top, all on one
-      device.  Tensors are used where they lie (CPU tensors run the plain
-      path on the CPU); numpy arrays are copied to the CUDA card, and raise
-      RuntimeError where there is none.
+      device.  Tensors are used where they lie; numpy arrays are copied to
+      the CUDA card, and raise RuntimeError where there is none.
     tables: the packed line table of the absorption kernel for this model
       (`LBLOperator` holds it as a buffer); built and cached when None.
 
@@ -125,13 +123,6 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
     (B, E, F) and trans_level (B, E, F, L).
     """
     with span("lbl.forward_batch"):
-        dtype = getattr(torch, config.dtype)
-        device = input_device(profiles["p"])
-        if (config.use_kernels and device.type == "cuda"
-                and dtype != torch.float32):
-            raise ValueError(f"the CUDA kernels are float32 only; got dtype "
-                             f"{config.dtype!r} (use_kernels=False runs the "
-                             f"plain torch path in any dtype)")
         with span("lbl.layout"):
             z, p, t, rho, lwc = level_major_profiles(profiles,
                                                      config).values()
@@ -141,18 +132,15 @@ def forward_batch(profiles: dict, config: LBLConfig = LBLConfig(),
                 o3 = (_afgl_o3(z) if o3 is None
                       else torch.as_tensor(o3).to(z).T.contiguous())
 
-        want_trans = "trans_level" in config.outputs
-        if config.use_kernels:
-            alpha = absorption_lb(config.freqs_ghz, p, t, rho, lwc,
-                                  config.model, o3=o3, tables=tables)
-        else:
-            alpha = absorption_lb_reference(config.freqs_ghz, p, t, rho, lwc,
-                                            config.model, o3=o3)
+        alpha = absorption_lb(config.freqs_ghz, p, t, rho, lwc, config.model,
+                              o3=o3, tables=tables,
+                              use_kernels=config.use_kernels)
         with span("lbl.refractive_index"):
             n = geometry.refractive_index(p, t, thermo.rho_to_e(rho, t))
-        rte_fn = forward_lb if config.use_kernels else forward_lb_reference
-        stacked = rte_fn(config.freqs_ghz, config.elevations_deg, alpha, z, n,
-                         t, want_trans_level=want_trans)
+        stacked = forward_lb(config.freqs_ghz, config.elevations_deg, alpha,
+                             z, n, t,
+                             want_trans_level="trans_level" in config.outputs,
+                             use_kernels=config.use_kernels)
         # back to the public (B, E, F[, L]) layout
         with span("lbl.output_layout"):
             return {k: (v.permute(3, 0, 1, 2) if k == "trans_level"

@@ -13,8 +13,8 @@ Sa' = Sa / (1 + g) and d = x_k - xa, the trial state is
     xa + d g / (1 + g)
        + Sa' K^T (K Sa' K^T + Se)^-1 (y - F(x_k) + K d / (1 + g))
 
-with F the fast operator (`fast.fast_forward_batch`: through kernel K2 on
-CUDA float32 tensors) and K = dF/dx its closed-form K-matrix
+with F the fast operator (`fast.fast_forward_batch`: through kernel K2 where
+it launches, `ops.cuda.launches`) and K = dF/dx its closed-form K-matrix
 (`jacobians.kmatrix_fast_adjoint_batch`).  At g = 0 it is, term for term,
 the JAX package's Gauss-Newton update,
 
@@ -126,8 +126,8 @@ def retrieve_batch(params: dict, tb_obs, z_m, p_hpa, t_prior, rho_prior,
     where it lies (a CPU tensor asks for the CPU), a numpy array goes to the
     CUDA card and raises RuntimeError where there is none; the other inputs
     are moved there.  It is float64 where `z_m` is a float64 tensor and
-    float32 otherwise; the fast operator's kernel is float32 only, so
-    float64 runs its plain path, on the CPU.
+    float32 otherwise; the kernels take float32 alone
+    (`ops.cuda.launches`), so float64 runs on the CPU.
 
     Returns t, rho (B, L), tb_fit (B, E, C), cost (B, n_iter), the mean
     squared residual [K^2] before each step, and dofs (B,), the degrees of

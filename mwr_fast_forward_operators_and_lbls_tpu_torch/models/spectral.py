@@ -8,8 +8,8 @@ computes the slant paths (E, L-1, B) once, and streams the frequency grid
 through two stages in chunks of `freq_chunk`: absorption on the runtime grid
 (kernel K6, alpha (Fc, L, B)) and the downwelling RTE on the given paths
 (kernel K3, tb and tau_total (E, Fc, B)), each chunk permuted into the
-(B, E, F) outputs.  On CUDA float32 tensors the stages launch the kernels;
-on CPU tensors, or with `use_kernels=False`, they run the plain versions.
+(B, E, F) outputs.  Each stage launches its kernel or runs its plain
+version by the rule of `ops.cuda.launches`, given `use_kernels`.
 Peak device memory is one (Fc, L, B) alpha block whatever F is.
 """
 
@@ -18,11 +18,9 @@ import torch
 
 from ..constants import physics as phys
 from ..ops import geometry, rte, thermo
-from ..ops.cuda.rte import downwelling_lb, downwelling_lb_reference
-from ..ops.cuda.spectral import (absorption_spectral,
-                                 absorption_spectral_reference)
+from ..ops.cuda.rte import downwelling_lb
+from ..ops.cuda.spectral import absorption_spectral
 from ..ops.spans import span
-from ..ops.tensors import input_device
 from .lbl import LBLConfig, level_major_profiles
 
 
@@ -52,11 +50,9 @@ def _forward_chunk(levels: dict, f_chunk, ds_km, model: str,
     """tb and tau_total (E, Fc, B) of one frequency chunk: absorption on the
     chunk's grid, then the RTE on the given slant paths ds_km (E, L-1, B)."""
     p, t, rho, lwc = (levels[k] for k in ("p", "t", "rho", "lwc"))
-    if use_kernels:
-        alpha = absorption_spectral(f_chunk, p, t, rho, lwc, model)
-        return downwelling_lb(f_chunk, alpha, ds_km, t)
-    alpha = absorption_spectral_reference(f_chunk, p, t, rho, lwc, model)
-    return downwelling_lb_reference(f_chunk, alpha, ds_km, t)
+    alpha = absorption_spectral(f_chunk, p, t, rho, lwc, model,
+                                use_kernels=use_kernels)
+    return downwelling_lb(f_chunk, alpha, ds_km, t, use_kernels=use_kernels)
 
 
 def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
@@ -70,20 +66,13 @@ def forward_spectral(profiles: dict, f_ghz, elevations_deg=(90.0,),
       working dtype is theirs (float32 at least).
     f_ghz: the frequency grid [GHz], a sequence, numpy array or tensor; its
       values are rounded to float32, as in the JAX package.
-    use_kernels: launch K6 and K3 once per chunk on CUDA float32 profiles
-      (as `LBLConfig.use_kernels`); False runs the plain versions.  The
-      kernels are float32 only: CUDA profiles of another dtype need
-      use_kernels=False, or this raises.
+    use_kernels: as `LBLConfig.use_kernels`; where the kernels launch
+      (`ops.cuda.launches`), K6 and K3 once per chunk.
 
     Returns tb and tau_total, each (B, E, F).
     """
     dtype = torch.promote_types(torch.as_tensor(profiles["p"]).dtype,
                                 torch.float32)
-    if (use_kernels and input_device(profiles["p"]).type == "cuda"
-            and dtype != torch.float32):
-        raise ValueError(f"the CUDA kernels are float32 only; got {dtype} "
-                         f"(use_kernels=False runs the plain torch path in "
-                         f"any dtype)")
     with span("spectral.forward_spectral"):
         with span("spectral.layout"):
             levels = level_major_profiles(

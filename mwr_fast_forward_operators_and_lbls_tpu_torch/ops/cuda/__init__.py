@@ -11,4 +11,26 @@ launch count and its plain torch version:
   chain.chain                        <- csrc/chain.cu                (K7)
   geometry.slant_geometry_lb         <- csrc/geometry.cu    (K geometry)
   fastk.fastk_adjoint                <- csrc/fastk.cu       (the fast K)
+
+Every wrapper but K7's microbenchmark takes `use_kernels: bool = True` and
+decides by one rule, `launches`, whether its kernel runs: a CPU tensor, or
+use_kernels=False, runs the plain version (the wrapper's `..._reference`,
+in any dtype and differentiable); a CUDA float32 tensor with use_kernels
+launches the kernel; a CUDA tensor of another dtype with use_kernels raises
+ValueError.  The entry points in `models/` and `pipeline/` pass their
+config's `use_kernels` through and decide nothing themselves.
 """
+
+import torch
+
+
+def launches(x: torch.Tensor, use_kernels: bool = True) -> bool:
+    """The rule above, on the tensor `x` a wrapper decides by: True where
+    the kernel launches, False where the plain version runs."""
+    if not use_kernels or x.device.type == "cpu":
+        return False
+    if x.dtype != torch.float32:
+        raise ValueError(f"the CUDA kernels are float32 only; got {x.dtype} "
+                         f"on {x.device} (use_kernels=False runs the plain "
+                         f"torch version in any dtype)")
+    return True

@@ -3,9 +3,9 @@
 
 `absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km];
 `absorption_tangents_lb` returns alpha with its elementwise partials in T and
-rho (K4, the same function with both tangents carried through it).  On CPU
-tensors each runs its plain torch version; on CUDA tensors it launches its
-kernel or raises.
+rho (K4, the same function with both tangents carried through it).  Each
+launches its kernel or runs its plain torch version by the package's rule
+(`ops.cuda.launches`).
 
 K1 evaluates one merged rational per line from a per-point state, as K6
 does: `_mirrors.absorption_lb_merged` follows its order of operations in
@@ -26,7 +26,7 @@ from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import total_absorption
 from ..absorption.h2o import _GL_W, _GL_X
 from ..spans import span
-from . import _build
+from . import _build, launches
 
 # Scalar slots at the head of the packed table, in the order of the `Header`
 # enum in csrc/absorption.cu.
@@ -183,18 +183,16 @@ def absorption_tangents_lb_reference(freqs, p, t, rho, lwc,
 
 def check_points(arrays: dict, tables, layout: LineTables, ndim=None):
     """Check the point arrays and the packed table an absorption kernel
-    reads: float32, contiguous, one shape (of `ndim` axes when given) and
-    one CUDA device."""
+    reads: contiguous, one shape (of `ndim` axes when given), the table's
+    dtype and one device."""
     ref = arrays["p"]
     for name, a in arrays.items():
-        if not a.is_cuda or a.dtype != torch.float32:
-            raise TypeError(f"{name}: the absorption kernel takes float32 "
-                            f"CUDA tensors, got {a.dtype} on {a.device}")
         if (a.device != ref.device or a.shape != ref.shape
+                or a.dtype != tables.dtype
                 or (ndim is not None and a.ndim != ndim)):
-            raise ValueError(f"{name}: expected {tuple(ref.shape)} on "
-                             f"{ref.device}, got {tuple(a.shape)} on "
-                             f"{a.device}")
+            raise ValueError(f"{name}: expected {tuple(ref.shape)} "
+                             f"{tables.dtype} on {ref.device}, got "
+                             f"{tuple(a.shape)} {a.dtype} on {a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not 0 < ref.numel() < 2 ** 31:
@@ -214,15 +212,15 @@ def _check_inputs(freqs, arrays: dict, tables, layout: LineTables):
 
 
 def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
-                  tables=None):
+                  tables=None, use_kernels: bool = True):
     """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] and optional O3
     [ppmv] -> alpha (F, L, B) [Np/km] at the channels `freqs` [GHz].
 
-    CPU tensors take the plain version.  CUDA tensors (float32, contiguous)
-    launch K1; `tables` is the packed `line_tables(model, o3 is not None,
-    device)`, built and cached here when not given.
+    K1 or the plain version by `launches(p, use_kernels)`; K1 takes
+    contiguous arrays and `tables`, the packed `line_tables(model, o3 is
+    not None, device)`, built and cached here when not given.
     """
-    if p.device.type == "cpu":
+    if not launches(p, use_kernels):
         return absorption_lb_reference(freqs, p, t, rho, lwc, model, o3)
     with span("cuda.absorption_lb"):
         with_o3 = o3 is not None
@@ -297,16 +295,16 @@ def tangent_blocks(n_points: int, n_channels: int) -> int:
 
 
 def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
-                           tables=None):
+                           tables=None, use_kernels: bool = True):
     """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] -> alpha,
     dalpha/dT [Np/km/K] and dalpha/drho [Np/km per g/m^3], each (F, L, B),
     in one pass that carries both tangents.
 
-    CPU tensors take the plain version.  CUDA tensors (float32, contiguous)
-    launch K4; `tables` is the packed `line_tables(model, False, device)`
-    (K4 has no O3 term), built and cached here when not given.
+    K4 or the plain version by `launches(p, use_kernels)`; K4 takes
+    contiguous arrays and `tables`, the packed `line_tables(model, False,
+    device)` (K4 has no O3 term), built and cached here when not given.
     """
-    if p.device.type == "cpu":
+    if not launches(p, use_kernels):
         return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model)
     with span("cuda.absorption_tangents_lb"):
         layout, tables = _kernel_args(

@@ -3,8 +3,8 @@ wrappers and their plain versions.
 
 `kmatrix_assembled_lb` returns one assembled K-matrix variable (t, rho or
 lwc) and `kmatrix_assembled_rho_lwc_lb` returns k_rho and k_lwc from one
-shared adjoint core, each (E, F, L, B).  On CPU tensors they run the plain
-versions; on CUDA tensors they launch the kernel or raise.
+shared adjoint core, each (E, F, L, B).  Each launches the kernel or runs
+its plain version by the package's rule (`ops.cuda.launches`).
 """
 
 import torch
@@ -14,7 +14,7 @@ from ...constants import physics as phys
 from .. import rte
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build
+from . import _build, launches
 
 # the kernel's `mode` argument (csrc/adjoint.cu::mwr_kmatrix_lb)
 _MODES = {"lwc": 0, "rho": 1, "t": 2, "rho_lwc": 3}
@@ -87,11 +87,10 @@ def kmatrix_assembled_rho_lwc_lb_reference(freqs, alpha, da_rho, da_lwc, ds,
 def _check_inputs(freqs, arrays: dict, n_el: int):
     alpha = arrays["alpha"]
     for name, a in arrays.items():
-        if not a.is_cuda or a.dtype != torch.float32:
-            raise TypeError(f"{name}: the K-matrix kernel takes float32 CUDA "
-                            f"tensors, got {a.dtype} on {a.device}")
-        if a.device != alpha.device or not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {alpha.device}")
+        if (a.device != alpha.device or a.dtype != alpha.dtype
+                or not a.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {alpha.dtype} on "
+                             f"{alpha.device}")
     if alpha.ndim != 3 or alpha.shape[1] < 2 or alpha.shape[0] != len(freqs):
         raise ValueError(f"alpha: expected ({len(freqs)}, L, B) with L >= 2, "
                          f"got {tuple(alpha.shape)}")
@@ -144,7 +143,8 @@ def _launch(freqs, mode: str, alpha, da, ds, t_k, dds_dnl=None, dds_dk=None,
 
 
 def kmatrix_assembled_lb(freqs, which: str, alpha, da, ds, t_k, dds_dnl=None,
-                         dds_dk=None, dn=None, r0cos=None):
+                         dds_dk=None, dn=None, r0cos=None,
+                         use_kernels: bool = True):
     """One assembled K-matrix variable.
 
     freqs: F channel frequencies [GHz].  which: "t", "rho" or "lwc" (selects
@@ -155,13 +155,13 @@ def kmatrix_assembled_lb(freqs, which: str, alpha, da, ds, t_k, dds_dnl=None,
     d(refractive index)/d(which) and r0cos (E, B) = (R_E + z_0) cos(el).
     Returns K (E, F, L, B).
 
-    CPU tensors take the plain version; CUDA tensors (float32, contiguous)
-    launch K5.
+    K5 (contiguous arrays) or the plain version by `launches(alpha,
+    use_kernels)`.
     """
     if which not in ("t", "rho", "lwc"):
         raise ValueError(f"which must be 't', 'rho' or 'lwc', got {which!r}")
     _needs_geometry(which, (dds_dnl, dds_dk, dn, r0cos))
-    if alpha.device.type == "cpu":
+    if not launches(alpha, use_kernels):
         return kmatrix_assembled_lb_reference(freqs, which, alpha, da, ds,
                                               t_k, dds_dnl, dds_dk, dn, r0cos)
     with span("cuda.kmatrix_assembled_lb"):
@@ -175,11 +175,12 @@ kmatrix_assembled_lb.launches = 0
 
 
 def kmatrix_assembled_rho_lwc_lb(freqs, alpha, da_rho, da_lwc, ds, t_k,
-                                 dds_dnl, dds_dk, dn_rho, r0cos):
+                                 dds_dnl, dds_dk, dn_rho, r0cos,
+                                 use_kernels: bool = True):
     """k_rho and k_lwc, each (E, F, L, B), from one shared adjoint core.
-    Shapes as in `kmatrix_assembled_lb`; da_lwc (F, L, B) is
+    Shapes and the rule as in `kmatrix_assembled_lb`; da_lwc (F, L, B) is
     dalpha/d(LWC)."""
-    if alpha.device.type == "cpu":
+    if not launches(alpha, use_kernels):
         return kmatrix_assembled_rho_lwc_lb_reference(
             freqs, alpha, da_rho, da_lwc, ds, t_k, dds_dnl, dds_dk, dn_rho,
             r0cos)

@@ -5,10 +5,10 @@ its assembly into K_t and K_rho, its wrapper and its plain version.
 `jacobians.kmatrix_fast_adjoint_batch` makes (the layer-mean extinction and
 its partials, the chords and their sensitivities, the profiles'
 temperatures and refractive-index partials) and returns {name: K (B, E, C,
-L)} for each name of `wrt` in {"t", "rho"}.  On CPU tensors it runs the
-plain version; on CUDA float32 tensors it launches the kernel, one launch
-in place of the plain version's 179 operations, 94 of which write a full
-(B, E, C, L-1) tensor or larger.
+L)} for each name of `wrt` in {"t", "rho"}.  It launches the kernel, one
+launch in place of the plain version's 179 operations, 94 of which write a
+full (B, E, C, L-1) tensor or larger, or runs the plain version by the
+package's rule (`ops.cuda.launches`).
 """
 
 import torch
@@ -17,7 +17,7 @@ from ...constants import physics as phys
 from .. import rte
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build
+from . import _build, launches
 
 FASTK_WRT = ("t", "rho")
 # the kernel runs one warp an elevation in a block of at most 1024 threads
@@ -63,11 +63,8 @@ def _check_inputs(freqs, arrays: dict, wrt):
     if not set(wrt) <= set(FASTK_WRT) or not wrt:
         raise ValueError(f"wrt must name some of {FASTK_WRT}, got {wrt}")
     for name, a in arrays.items():
-        if not a.is_cuda or a.dtype != torch.float32:
-            raise TypeError(f"{name}: the fast-K kernel takes float32 CUDA "
-                            f"tensors, got {a.dtype} on {a.device}")
-        if a.device != t.device:
-            raise ValueError(f"{name} must be on {t.device}")
+        if a.device != t.device or a.dtype != t.dtype:
+            raise ValueError(f"{name} must be {t.dtype} on {t.device}")
         if not a.is_contiguous() and not (name == "t" and a.stride(1) == 1):
             raise ValueError(f"{name} must be contiguous (t along L only)")
     if t.ndim != 2 or t.shape[1] < 2:
@@ -92,7 +89,8 @@ def _check_inputs(freqs, arrays: dict, wrt):
 
 
 def fastk_adjoint(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
-                  dn_t, dn_rho, r0cos, wrt=FASTK_WRT):
+                  dn_t, dn_rho, r0cos, wrt=FASTK_WRT,
+                  use_kernels: bool = True):
     """K_t and K_rho of the fast operator, {name: (B, E, C, L)} for each
     name of `wrt` (in {"t", "rho"}).
 
@@ -105,13 +103,19 @@ def fastk_adjoint(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
     partial that `wrt` does not need (d_tm, dn_t for t; d_rm, dn_rho for
     rho) may be None.
 
-    CPU tensors take the plain version; CUDA tensors, float32 and
-    contiguous (t along L only), launch the kernel.
+    The kernel or the plain version by `launches(t, use_kernels)`.  The
+    kernel takes contiguous arrays (t along L only); the chords are made so
+    here.
     """
-    if t.device.type == "cpu":
+    if not launches(t, use_kernels):
         return fastk_adjoint_reference(freqs, alpha_mid, d_tm, d_rm, ds,
                                        dds_dnl, dds_dk, t, dn_t, dn_rho,
                                        r0cos, wrt)
+    if not ds.shape == dds_dnl.shape == dds_dk.shape:
+        raise ValueError(f"ds, dds_dnl, dds_dk: expected one shape, got "
+                         f"{[tuple(a.shape) for a in (ds, dds_dnl, dds_dk)]}")
+    # contiguous (B, E, K), as the kernel reads the chords along K
+    ds, dds_dnl, dds_dk = torch.stack((ds, dds_dnl, dds_dk)).unbind(0)
     with span("cuda.fastk_adjoint"):
         arrays = dict(alpha_mid=alpha_mid, ds=ds, dds_dnl=dds_dnl,
                       dds_dk=dds_dk, t=t, r0cos=r0cos)

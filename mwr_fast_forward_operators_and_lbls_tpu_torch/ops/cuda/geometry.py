@@ -5,9 +5,10 @@ and its plain version.
 scan's elevations to the chords ds and their sensitivities dds_dnl, dds_dk
 (E, L-1, B), r0cos = (R_E + z_0) cos(el) (E, B) and the refractive index's
 partials dn {"t", "rho"} (L, B): what K5 takes beside alpha and its
-tangents.  On CPU tensors it runs the plain version; on CUDA float32
-tensors it launches the kernel, one launch in place of the plain version's
-some 130.
+tangents.  It launches the kernel, one launch in place of the plain
+version's some 130, or runs the plain version by the package's rule
+(`ops.cuda.launches`), and runs the plain version for a partial in p,
+which the kernel does not write.
 """
 
 import torch
@@ -16,7 +17,7 @@ from ...constants import physics as phys
 from .. import geometry, thermo
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build
+from . import _build, launches
 from .rte import _device_cos
 
 
@@ -54,9 +55,13 @@ def slant_geometry_lb_reference(elevations, z, p, t, rho,
                 dds_dk=elevation_major(dds_dk), r0cos=r0cos.to(dtype), dn=dn)
 
 
+# the refractive-index partials the kernel writes
+GEOMETRY_WRT = frozenset({"t", "rho"})
+
+
 def _check_inputs(z, p, t, rho):
     """The four profiles: (L, B) with L >= 2, contiguous, on one device, in
-    one dtype, float32 off the CPU."""
+    one dtype."""
     arrays = dict(z=z, p=p, t=t, rho=rho)
     if t.ndim != 2 or t.shape[0] < 2:
         raise ValueError(f"t: expected (L, B) with L >= 2, got "
@@ -70,24 +75,23 @@ def _check_inputs(z, p, t, rho):
                              f"{a.dtype} on {a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if t.device.type != "cpu" and t.dtype != torch.float32:
-        raise ValueError(f"the geometry kernel takes float32 profiles, got "
-                         f"{t.dtype} on {t.device}")
 
 
-def slant_geometry_lb(elevations, z, p, t, rho) -> dict:
+def slant_geometry_lb(elevations, z, p, t, rho, names=("t", "rho"),
+                      use_kernels: bool = True) -> dict:
     """Slant geometry of the K-matrix for the E `elevations` [deg] (a
     sequence) and level-major profiles z [m], p [hPa], t [K], rho [g/m^3]
     (L, B), each contiguous: {"ds", "dds_dnl", "dds_dk"} (E, L-1, B) [km,
-    km, km/m], "r0cos" (E, B) [m] and "dn" {"t", "rho"} (L, B).
+    km, km/m], "r0cos" (E, B) [m] and "dn" {name: (L, B)} for each of
+    `names` in {"t", "rho", "p"}.
 
-    CPU tensors take the plain version; CUDA tensors, float32, launch the
-    kernel, which works in float64 as the plain version does and rounds
-    each output once to float32.
+    The kernel or the plain version by `launches(t, use_kernels)`, the
+    plain version also where `names` has "p".  The kernel works in float64
+    as the plain version does and rounds each output once to float32.
     """
     _check_inputs(z, p, t, rho)
-    if t.device.type == "cpu":
-        return slant_geometry_lb_reference(elevations, z, p, t, rho)
+    if not (launches(t, use_kernels) and set(names) <= GEOMETRY_WRT):
+        return slant_geometry_lb_reference(elevations, z, p, t, rho, names)
     with span("cuda.slant_geometry_lb"):
         dev = t.device
         lev, batch = t.shape
@@ -111,7 +115,7 @@ def slant_geometry_lb(elevations, z, p, t, rho) -> dict:
             raise RuntimeError(f"geometry kernel launch failed: CUDA error "
                                f"{err}")
         slant_geometry_lb.launches += 1
-        return dict(out, r0cos=r0cos, dn=dn)
+        return dict(out, r0cos=r0cos, dn={name: dn[name] for name in names})
 
 
 slant_geometry_lb.launches = 0

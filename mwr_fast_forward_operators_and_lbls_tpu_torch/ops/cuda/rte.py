@@ -5,8 +5,8 @@ versions.
 indices and temperatures (L, B) to tb, tau_total, t_mr (E, F, B) and
 optionally trans_level (E, F, L, B).  `downwelling_lb` (K3) maps the same
 absorption, given slant paths (E, L-1, B) and temperatures to the same
-outputs.  On CPU tensors each runs its plain version; on CUDA tensors it
-launches its kernel or raises.
+outputs.  Each launches its kernel or runs its plain version by the
+package's rule (`ops.cuda.launches`).
 
 K2 has one body in `csrc/rte.cu`, the staged one: it streams alpha through
 shared memory and computes each chord, in float64, once per block of 16
@@ -25,7 +25,7 @@ from ...constants import physics as phys
 from .. import geometry, rte
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build
+from . import _build, launches
 
 
 def _cos_elevations(elevations, dtype, device) -> torch.Tensor:
@@ -76,11 +76,10 @@ def _check_inputs(n_ch, alpha, levels: dict, alpha_is_mid: bool,
     if ds_km is not None:
         arrays["ds_km"] = ds_km
     for name, a in arrays.items():
-        if not a.is_cuda or a.dtype != torch.float32:
-            raise TypeError(f"{name}: the RTE kernel takes float32 CUDA "
-                            f"tensors, got {a.dtype} on {a.device}")
-        if a.device != ref.device or not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {ref.device}")
+        if (a.device != ref.device or a.dtype != ref.dtype
+                or not a.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {ref.dtype} on "
+                             f"{ref.device}")
     if ref.ndim != 2 or ref.shape[0] < 2:
         raise ValueError(f"t: expected (L, B) with L >= 2, got "
                          f"{tuple(ref.shape)}")
@@ -111,13 +110,14 @@ def _outputs(n_el, n_ch, lev, batch, want_trans_level, device) -> dict:
 def forward_lb_body(alpha, n_elevations: int,
                     alpha_is_mid: bool = False) -> str:
     """How a call of `forward_lb` on this alpha (F, L or L-1, B) runs:
-    "plain" for a CPU tensor; on the card "staged" when B is a multiple of 4
-    and alpha's first element lies on a 16-byte boundary (any tensor that
-    owns its storage), "staged, 4-byte copies" otherwise: the same body with
-    the same arithmetic, filled by smaller asynchronous copies.  Raises
+    "plain" where the rule takes the plain version (`ops.cuda.launches`);
+    on the card "staged" when B is a multiple of 4 and alpha's first
+    element lies on a 16-byte boundary (any tensor that owns its storage),
+    "staged, 4-byte copies" otherwise: the same body with the same
+    arithmetic, filled by smaller asynchronous copies.  Raises
     ValueError for a shape the body refuses (more than about 1,700 levels).
     A pure function of the shape and the pointer."""
-    if alpha.device.type == "cpu":
+    if not launches(alpha):
         return "plain"
     n_ch, rows, batch = alpha.shape
     lev = rows + 1 if alpha_is_mid else rows
@@ -133,7 +133,7 @@ def forward_lb_body(alpha, n_elevations: int,
 
 
 def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
-               want_trans_level: bool = False):
+               want_trans_level: bool = False, use_kernels: bool = True):
     """Geometry and multi-elevation downwelling RTE.
 
     freqs (F channels [GHz]) is a sequence or a float32 tensor on alpha's
@@ -143,13 +143,13 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     are (L, B).  Returns tb, tau_total, t_mr (E, F, B) and, when
     `want_trans_level`, trans_level (E, F, L, B).
 
-    On the card the chords are taken in float64, which at low elevations
-    is closer to float64 than the plain float32 version (at 4.2 degrees TB
-    within 5e-4 K, against 2e-3 K); what the call returns does not depend on
-    alpha's alignment (`forward_lb_body`).  A shape the kernel refuses
-    raises ValueError.
+    K2 or the plain version by `launches(alpha, use_kernels)`.  K2 takes
+    its chords in float64, which at low elevations is closer to float64
+    than the plain float32 version (at 4.2 degrees TB within 5e-4 K,
+    against 2e-3 K); what it returns does not depend on alpha's alignment
+    (`forward_lb_body`).  A shape the kernel refuses raises ValueError.
     """
-    if alpha.device.type == "cpu":
+    if not launches(alpha, use_kernels):
         return forward_lb_reference(freqs, elevations, alpha, z, n, t,
                                     alpha_is_mid, want_trans_level)
     with span("cuda.forward_lb"):
@@ -192,7 +192,7 @@ def downwelling_lb_reference(freqs, alpha, ds_km, t,
 
 
 def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
-                   want_trans_level: bool = False):
+                   want_trans_level: bool = False, use_kernels: bool = True):
     """Multi-elevation downwelling RTE on given slant paths.
 
     freqs: F frequencies [GHz], a sequence or a float32 tensor on alpha's
@@ -201,7 +201,8 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
     lengths [km]; t (L, B) [K].  Returns tb, tau_total, t_mr (E, F, B) and,
     when `want_trans_level`, trans_level (E, F, L, B).
 
-    K3 has two bodies (`csrc/rte.cu::staged_takes` decides between them):
+    K3 or the plain version by `launches(alpha, use_kernels)`.  K3 has two
+    bodies (`csrc/rte.cu::staged_takes` decides between them):
     without trans_level, with B a multiple of 4, L up to 780 and
     alpha's first element on a 16-byte boundary (any tensor that owns its
     storage; a contiguous view that starts elsewhere may not be), alpha is
@@ -209,7 +210,7 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
     takes the body of one thread per (elevation, frequency, profile), at
     about twice the time.  Both raise when their launch is refused.
     """
-    if alpha.device.type == "cpu":
+    if not launches(alpha, use_kernels):
         return downwelling_lb_reference(freqs, alpha, ds_km, t, alpha_is_mid,
                                         want_trans_level)
     with span("cuda.downwelling_lb"):

@@ -4,8 +4,8 @@ and plain version.
 `absorption_spectral` maps a runtime frequency grid (F,) and point arrays p,
 T, rho, LWC of any one shape to alpha (F, *shape) [Np/km], frequency-major:
 level-major (L, B) points give the (F, L, B) layout the RTE kernels read.
-On CPU tensors it runs `absorption_spectral_reference`; on CUDA tensors it
-launches K6 or raises.  There is no O3 term, as on the TPU.
+It launches K6 or runs `absorption_spectral_reference` by the package's
+rule (`ops.cuda.launches`).  There is no O3 term, as on the TPU.
 
 K6 is two passes.  The first computes, once per call, what depends on the
 point alone: `line_state` is its plain version and documents the layout.
@@ -25,7 +25,7 @@ from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import (h2o_absorption, liquid_absorption, n2_absorption,
                           o2_absorption, o3_absorption, total_absorption)
 from ..spans import span
-from . import _build
+from . import _build, launches
 from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, O3_FIELDS,
                          check_points, line_tables, pack_tables, table_layout)
 
@@ -255,7 +255,7 @@ def line_state_pass(p, t, rho, lwc, model: str = "R24"):
 
 
 def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
-                        f_range=None):
+                        f_range=None, use_kernels: bool = True):
     """Monochromatic absorption: frequencies f_ghz (F,) [GHz] and p [hPa],
     T [K], rho [g/m^3], LWC [g/m^3] of one shape -> alpha (F, *shape)
     [Np/km].
@@ -263,12 +263,12 @@ def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
     f_ghz is a sequence, a numpy array or a tensor; on the kernel path a
     contiguous float32 tensor on the points' device is used as it is.
     f_range = (fmin, fmax), when given, is checked against the frequencies:
-    ValueError if one lies outside it.  CPU tensors take the plain version.
-    CUDA tensors (float32, contiguous) launch K6 on the release's packed
-    `line_tables(model, False, device)`; the per-point state lives in a
-    scratch tensor allocated here.
+    ValueError if one lies outside it.  K6 or the plain version by
+    `launches(p, use_kernels)`; K6 takes contiguous points and reads the
+    release's packed `line_tables(model, False, device)`; the per-point
+    state lives in a scratch tensor allocated here.
     """
-    if p.device.type == "cpu":
+    if not launches(p, use_kernels):
         return absorption_spectral_reference(f_ghz, p, t, rho, lwc, model,
                                              f_range)
     with span("cuda.absorption_spectral"):

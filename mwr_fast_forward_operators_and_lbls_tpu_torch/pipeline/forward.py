@@ -43,6 +43,7 @@ from ..data.dataset import Dataset, Variable
 from ..models import fast as fast_mod
 from ..models import jacobians as jac_mod
 from ..models import lbl as lbl_mod
+from ..ops.cuda import launches
 from ..ops.cuda.absorption import line_tables
 from ..ops.spans import span
 from ..ops.tensors import resolve_device
@@ -130,14 +131,15 @@ def _upload(profiles: dict, compress: bool, device: torch.device):
     return payload, ref_dev
 
 
-def _stage_tables(models: tuple, use_kernels: bool,
-                  device: torch.device) -> dict:
+def _stage_tables(models: tuple, use_kernels: bool, out: dict) -> dict:
     """The packed line table of each model, which K1 and K4 read, built once
-    per stage ({} where the kernels do not run: the plain versions need
-    none)."""
-    if not (use_kernels and device.type == "cuda"):
+    per stage on the device of the stage's outputs `out` (`_allocate`); {}
+    where the kernels do not launch (`ops.cuda.launches`): the plain
+    versions need none."""
+    like = out["lbl"][models[0]]
+    if not launches(like, use_kernels):
         return {}
-    return {m: line_tables(m, False, device) for m in models}
+    return {m: line_tables(m, False, like.device) for m in models}
 
 
 def _allocate(n_time: int, n_lev: int, models: tuple, with_fast: bool,
@@ -250,7 +252,7 @@ def forward_stage(ds: Dataset,
                   fast_params: dict | None = None,
                   with_jacobians: bool = False,
                   batch_size: int = 256,
-                  fused: bool | None = None,
+                  use_kernels: bool = True,
                   compress_upload: bool = False,
                   device=None) -> Dataset:
     """Run the native LBL (all `models`) and optionally the fast operator and
@@ -259,8 +261,8 @@ def forward_stage(ds: Dataset,
 
     device: where the stage computes; None is the CUDA card, and raises
       RuntimeError where there is none (`device="cpu"` runs it on the CPU).
-    fused: None or True runs the kernels (on the CPU their wrappers take
-      their plain versions); False runs the plain torch path on any device.
+    use_kernels: passed to the kernels' wrappers (`ops.cuda.launches`);
+      False runs the plain torch versions on any device.
     fast_params: {"w": (72, C)} as the port's tensors or the JAX package's
       weights as numpy arrays; carried onto `device`
       (`fast.params_from_numpy`).
@@ -268,13 +270,12 @@ def forward_stage(ds: Dataset,
     """
     with span("stage.forward_stage"):
         dev = resolve_device(device)
-        use_kernels = fused is None or bool(fused)
         models = tuple(models)
         if fast_params is not None:
             fast_params = fast_mod.params_from_numpy(fast_params, dev)
         out = _allocate(ds.dims["time"], ds.dims["N_Levels"], models,
                         fast_params is not None, with_jacobians, dev)
-        tables = _stage_tables(models, use_kernels, dev)
+        tables = _stage_tables(models, use_kernels, out)
         # Upload and enqueue BOTH crops before reading any result: crop 1's
         # screening and upload overlap crop 0's device work.
         for crop in (0, 1):

@@ -22,6 +22,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     _build, _mirrors, adjoint as k5)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
     absorption_tangents_lb_reference)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.geometry import (
+    slant_geometry_lb)
 
 torch.set_num_threads(1)
 
@@ -181,7 +183,8 @@ def test_refractive_index_partials_are_the_derivatives(levels, name):
 
     want = torch.func.jvp(n_of, (state[name],),
                           (torch.ones_like(state[name]),))[1]
-    g = jacobians._slant_geometry(levels, lbl.LBLConfig(), (name,))
+    g = slant_geometry_lb(lbl.LBLConfig().elevations_deg, *(
+        levels[k] for k in ("z", "p", "t", "rho")), names=(name,))
     torch.testing.assert_close(g["dn"][name], want, rtol=1e-12, atol=0)
 
 
@@ -195,7 +198,7 @@ def _k5_inputs(levels, freqs, elevs, dtype=torch.float64):
         freqs, lev["p"], lev["t"], lev["rho"], lev["lwc"], "R24")
     da = {"t": da_t, "rho": da_rho,
           "lwc": jacobians._dalpha_dlwc(cfg, lev["t"])}
-    g = jacobians._slant_geometry(lev, cfg, ("t", "rho"))
+    g = slant_geometry_lb(elevs, *(lev[k] for k in ("z", "p", "t", "rho")))
     return alpha, da, g, lev["t"]
 
 

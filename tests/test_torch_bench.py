@@ -212,7 +212,7 @@ def test_kmatrix_matches_jax_xla(runs):
     run = runs["kmatrix"]
     prof = _np(run.inputs["profiles"])
     want = jjac.kmatrix_batch_fast(prof, jlbl.LBLConfig(model="R24"),
-                                   wrt=("t", "rho", "lwc"), fused=False)
+                                   wrt=("t", "rho", "lwc"))
     for name in ("t", "rho", "lwc"):
         a, b = np.asarray(want[name]), run.out["k"][name].numpy()
         assert b.shape == a.shape == (3, 10, 14, 16)
@@ -347,7 +347,7 @@ def test_forward_stage_matches_jax(runs):
     jds = _jax_stage_dataset(4, 16)
     for key, compress in (("stage", False), ("stage_f16", True)):
         want = jforward_stage(jds.copy(), models=("R24",), batch_size=3,
-                              fused=False, compress_upload=compress)
+                              compress_upload=compress)
         got = run.out[key]["TBs_LBL_R24"]
         assert got.shape == (4, 14, 10, 2)
         np.testing.assert_allclose(got, want["TBs_LBL_R24"].data, rtol=0,

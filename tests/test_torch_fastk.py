@@ -13,6 +13,7 @@ import torch
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (fast,
                                                                   jacobians,
                                                                   lbl)
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import spans
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     _build, _mirrors, fastk)
 
@@ -91,23 +92,32 @@ def test_warp_walk_in_float32_meets_the_card_tests_bound(n_levels):
 
 
 def test_cpu_profiles_never_reach_the_wrapper(monkeypatch):
-    """On the CPU `kmatrix_fast_adjoint_batch` takes the plain version,
-    use_kernels or not, and its outputs are what it computed before the
-    kernel: the plain version on the inputs `fast_k_inputs` gives."""
-    def refuse(*args, **kwargs):
-        raise AssertionError("the wrapper was called")
+    """On the CPU `kmatrix_fast_adjoint_batch` passes its config's
+    use_kernels to the wrapper, whose kernel path CPU profiles never reach:
+    the wrapper takes the plain version, use_kernels or not, and the
+    outputs are the plain version on the inputs `fast_k_inputs` gives."""
+    def no_kernel_path(label):
+        raise AssertionError(f"{label} was entered")
 
-    monkeypatch.setattr(jacobians, "fastk_adjoint", refuse)
+    seen = []
+    monkeypatch.setattr(fastk, "span", lambda label: no_kernel_path(label)
+                        if label.startswith("cuda.") else spans.span(label))
+    monkeypatch.setattr(jacobians, "fastk_adjoint", lambda *a, **kw:
+                        seen.append(kw["use_kernels"])
+                        or fastk.fastk_adjoint(*a, **kw))
     profiles = lbl.demo_batch(3, 40, device="cpu")
     params = {"w": _weights(40)}
+    before = fastk.fastk_adjoint.launches
     for cfg in (CFG, fast.FastConfig(elevations_deg=ELEVS, outputs=("tb",),
                                      use_kernels=False)):
         got = jacobians.kmatrix_fast_adjoint_batch(params, profiles, cfg)
+        assert seen[-1] == cfg.use_kernels
         want = fastk.fastk_adjoint_reference(
             CFG.freqs_ghz, **jacobians.fast_k_inputs(
                 params, fast.batch_arrays(profiles, torch.float32), ELEVS))
         for name in fastk.FASTK_WRT:
             assert torch.equal(got[name], want[name]), name
+    assert fastk.fastk_adjoint.launches == before
 
 
 def test_the_wrapper_takes_the_plain_version_on_the_cpu():

@@ -4,6 +4,7 @@ versions) against the JAX package's XLA K-matrix, against the port's own
 jacrev, and against finite differences of the forward."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +17,7 @@ from mwr_fast_forward_operators_and_lbls_tpu.models import lbl as jlbl
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (jacobians,
                                                                   lbl)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
-    absorption, adjoint)
+    absorption, adjoint, geometry, launches)
 
 torch.set_num_threads(1)
 
@@ -42,18 +43,26 @@ def k64(batch64):
         batch64, dataclasses.replace(CFG, dtype="float64"))
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["closed", "lanes"])
-def test_fp32_matches_jax_xla(batch, fused):
-    """Both routes, float32, against the JAX XLA K-matrix on the same
-    profiles: the JAX package's own fast-vs-jacrev bound,
+@pytest.fixture(scope="module")
+def closed64(batch64):
+    """The closed form, which a wrt with "p" takes."""
+    return jacobians.kmatrix_batch_fast(
+        batch64, dataclasses.replace(CFG, dtype="float64"),
+        wrt=WRT + ("p",))
+
+
+@pytest.mark.parametrize("wrt", [WRT + ("p",), WRT], ids=["closed", "lanes"])
+def test_fp32_matches_jax_xla(batch, wrt):
+    """Both routes, float32, against the JAX XLA K-matrix with the same wrt
+    on the same profiles: the JAX package's own fast-vs-jacrev bound,
     2e-4 * max(scale, 1)."""
     want = jjac.kmatrix_batch_fast(
         {k: v.numpy() for k, v in batch.items()},
         jlbl.LBLConfig(model="R24", elevations_deg=CFG.elevations_deg,
-                       freqs_ghz=F_SUB), wrt=WRT, fused=False)
-    got = jacobians.kmatrix_batch_fast(batch, CFG, wrt=WRT, fused=fused)
-    assert set(got) == set(WRT)
-    for name in WRT:
+                       freqs_ghz=F_SUB), wrt=wrt)
+    got = jacobians.kmatrix_batch_fast(batch, CFG, wrt=wrt)
+    assert set(got) == set(wrt)
+    for name in wrt:
         a, b = np.asarray(want[name]), got[name].numpy()
         assert b.shape == a.shape == (3, 3, 3, 32) and b.dtype == np.float32
         scale = np.abs(a).max()
@@ -151,43 +160,47 @@ def test_ppmv_conversion_matches_jax(k64, batch64):
 
 
 def test_routing_on_cpu(batch, monkeypatch):
-    """fused=None on CPU tensors takes the plain closed form; fused=True
-    runs the kernels' pipeline through the plain versions and launches
-    nothing; "p" and use_kernels=False are refused by the pipeline."""
+    """wrt within {t, rho, lwc} takes the kernels' pipeline, on the CPU
+    through the plain versions, and launches nothing; wrt with "p" takes the
+    closed form; the rule raises its one ValueError on a stand-in for a
+    CUDA float64 tensor."""
     calls = []
-    real = jacobians._kmatrix_batch_fused_lanes
-    monkeypatch.setattr(jacobians, "_kmatrix_batch_fused_lanes",
-                        lambda *a: calls.append(a) or real(*a))
-    closed = jacobians.kmatrix_batch_fast(batch, CFG, wrt=WRT)
-    assert calls == []
-    lanes = jacobians.kmatrix_batch_fast(batch, CFG, wrt=WRT, fused=True)
-    assert len(calls) == 1
+    for route in ("_kmatrix_batch_fused_lanes", "_kmatrix_batch_closed_form"):
+        monkeypatch.setattr(jacobians, route, lambda *a, _n=route,
+                            _f=getattr(jacobians, route):
+                            calls.append(_n) or _f(*a))
+    counters = (absorption.absorption_tangents_lb,
+                geometry.slant_geometry_lb, adjoint.kmatrix_assembled_lb,
+                adjoint.kmatrix_assembled_rho_lwc_lb)
+    before = [c.launches for c in counters]
+    lanes = jacobians.kmatrix_batch_fast(batch, CFG, wrt=WRT)
+    plain = jacobians.kmatrix_batch_fast(
+        batch, dataclasses.replace(CFG, use_kernels=False), wrt=WRT)
+    closed = jacobians.kmatrix_batch_fast(batch, CFG, wrt=WRT + ("p",))
+    assert calls == ["_kmatrix_batch_fused_lanes"] * 2 + [
+        "_kmatrix_batch_closed_form"]
+    assert [c.launches for c in counters] == before
     for name in WRT:
+        assert torch.equal(plain[name], lanes[name]), name
         torch.testing.assert_close(lanes[name], closed[name], rtol=0,
                                    atol=1e-5 * float(closed[name].abs().max()))
-    assert (absorption.absorption_tangents_lb.launches,
-            adjoint.kmatrix_assembled_lb.launches,
-            adjoint.kmatrix_assembled_rho_lwc_lb.launches) == (0, 0, 0)
-    with pytest.raises(ValueError, match="fused K-matrix"):
-        jacobians.kmatrix_batch_fast(batch, CFG, wrt=("t", "p"), fused=True)
-    with pytest.raises(ValueError, match="fused K-matrix"):
-        jacobians.kmatrix_batch_fast(
-            batch, dataclasses.replace(CFG, use_kernels=False), wrt=WRT,
-            fused=True)
-    assert len(calls) == 1
+    cuda64 = types.SimpleNamespace(device=torch.device("cuda", 0),
+                                   dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32 only"):
+        launches(cuda64)
+    assert launches(cuda64, use_kernels=False) is False
 
 
 @pytest.mark.parametrize("wrt", [("t",), ("rho",), ("lwc",), ("rho", "lwc"),
                                  ("t", "lwc")])
-def test_lanes_subsets_match_closed_form(batch64, k64, wrt):
+def test_lanes_subsets_match_closed_form(batch64, closed64, wrt):
     """Each subset of wrt through the pipeline (one K5 call per variable)
-    gives the all-three result."""
+    gives the closed form's result."""
     got = jacobians.kmatrix_batch_fast(
-        batch64, dataclasses.replace(CFG, dtype="float64"), wrt=wrt,
-        fused=True)
+        batch64, dataclasses.replace(CFG, dtype="float64"), wrt=wrt)
     assert set(got) == set(wrt)
     for name in wrt:
-        torch.testing.assert_close(got[name], k64[name], rtol=1e-12,
+        torch.testing.assert_close(got[name], closed64[name], rtol=1e-12,
                                    atol=1e-14)
 
 

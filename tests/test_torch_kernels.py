@@ -39,7 +39,7 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
     downwelling_lb, downwelling_lb_reference, forward_lb, forward_lb_body,
     forward_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
-    spectral as k6)
+    geometry as kgeo, spectral as k6)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (
     absorption_spectral, absorption_spectral_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import profiling
@@ -281,7 +281,7 @@ def test_main_path_launches_both_kernels(device):
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     prof = _levels(4, 20, device)
     args = [prof[k] for k in ("p", "t", "rho", "lwc")]
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="float32 only"):
         absorption_lb(FREQS, args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         absorption_lb(FREQS, args[0][:, :2], *args[1:])
@@ -338,8 +338,8 @@ def _k5_inputs(batch, device, n_levels=180):
         FREQS, prof["p"], prof["t"], prof["rho"], prof["lwc"], "R24")
     da = {"t": da_t, "rho": da_rho,
           "lwc": jacobians._dalpha_dlwc(cfg, prof["t"])}
-    return alpha, da, jacobians._slant_geometry(prof, cfg, ("t", "rho")), \
-        prof["t"]
+    return alpha, da, slant_geometry_lb(cfg.elevations_deg, *(
+        prof[k] for k in ("z", "p", "t", "rho"))), prof["t"]
 
 
 @pytest.mark.cuda
@@ -398,27 +398,26 @@ def test_kmatrix_path_launches_each_kernel_once(device):
     jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(), wrt=("t", "p"))
     jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(use_kernels=False))
     assert [c.launches for c in counters] == before
-    with pytest.raises(ValueError, match="fused K-matrix"):
-        jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(),
-                                     wrt=("t", "p"), fused=True)
-    with pytest.raises(ValueError, match="fused K-matrix"):
-        jacobians.kmatrix_batch_fast(profiles,
-                                     lbl.LBLConfig(use_kernels=False),
-                                     fused=True)
+    # the rule: float64 profiles with use_kernels raise before any launch
+    with pytest.raises(ValueError, match="float32 only"):
+        jacobians.kmatrix_batch_fast(
+            {k: v.double() for k, v in profiles.items()},
+            lbl.LBLConfig(dtype="float64"))
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.cuda
 def test_kmatrix_wrappers_refuse_what_the_kernels_do_not_take(device):
     prof = _levels(4, 20, device)
     args = [prof[k] for k in ("p", "t", "rho", "lwc")]
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="float32 only"):
         absorption_tangents_lb(FREQS, args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         absorption_tangents_lb(FREQS, args[0][:, :2], *args[1:])
     with pytest.raises(ValueError):
         absorption_tangents_lb(FREQS + FREQS, *args)
     alpha, da, g, t = _k5_inputs(4, device)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="float32 only"):
         kmatrix_assembled_lb(FREQS, "lwc", alpha.double(), da["lwc"],
                              g["ds"], t)
     with pytest.raises(ValueError):
@@ -432,11 +431,8 @@ def test_kmatrix_wrappers_refuse_what_the_kernels_do_not_take(device):
         slant_geometry_lb(ELEVS, prof["z"].double(), *(
             prof[k].double() for k in ("p", "t", "rho")))
     profiles = lbl.demo_batch(2, 20, device=device)
-    for fused in (None, True):
-        with pytest.raises(ValueError, match="float32 only"):
-            jacobians.kmatrix_batch_fast(profiles,
-                                         lbl.LBLConfig(dtype="float64"),
-                                         fused=fused)
+    with pytest.raises(ValueError, match="float32 only"):
+        jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(dtype="float64"))
 
 
 GEOMETRY_KEYS = ("ds", "dds_dnl", "dds_dk", "r0cos")
@@ -507,7 +503,9 @@ def test_geometry_wrapper_refuses_what_the_kernel_does_not_take(fault):
 def test_slant_geometry_returns_its_keys_shapes_and_dtypes(names):
     lev = _levels(3, 12, "cpu")
     cfg = lbl.LBLConfig()
-    g = jacobians._slant_geometry(lev, cfg, names)
+    g = slant_geometry_lb(cfg.elevations_deg, *(lev[k] for k in
+                                                ("z", "p", "t", "rho")),
+                          names=names)
     n_el = len(cfg.elevations_deg)
     assert set(g) == {"ds", "dds_dnl", "dds_dk", "r0cos", "dn"}
     assert tuple(g["dn"]) == names
@@ -577,7 +575,7 @@ def test_kmatrix_with_the_geometry_kernel_meets_the_k_criterion(device,
     before = slant_geometry_lb.launches
     got = jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(), wrt=wrt)
     assert slant_geometry_lb.launches == before + 1
-    monkeypatch.setattr(jacobians, "GEOMETRY_WRT", frozenset())
+    monkeypatch.setattr(kgeo, "GEOMETRY_WRT", frozenset())
     plain = jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(), wrt=wrt)
     assert slant_geometry_lb.launches == before + 1
     want = jacobians.kmatrix_batch_fast(
@@ -691,7 +689,7 @@ def test_spectral_kernel_refuses_what_it_does_not_take(device):
     f = _grid(40, device)
     with pytest.raises(ValueError, match="outside f_range"):
         absorption_spectral(f, *args, f_range=(30.0, 64.0))
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="float32 only"):
         absorption_spectral(f, args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         absorption_spectral(f, args[0][:, :2], *args[1:])
@@ -790,7 +788,7 @@ def test_downwelling_wrapper_refuses_what_the_kernel_does_not_take(device):
     alpha = absorption_lb(FREQS, prof["p"], prof["t"], prof["rho"],
                           prof["lwc"])
     ds = torch.ones((2, 19, 4), device=device)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="float32 only"):
         downwelling_lb(FREQS, alpha.double(), ds, prof["t"])
     with pytest.raises(ValueError):
         downwelling_lb(FREQS, alpha, ds[:, 1:], prof["t"])
@@ -1053,14 +1051,20 @@ def test_fast_k_path_launches_the_kernel_once(device):
 @pytest.mark.cuda
 def test_fastk_wrapper_refuses_what_the_kernel_does_not_take(device):
     cfg, k = _fastk_inputs(4, 20, device)
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError):
         fastk_adjoint(cfg.freqs_ghz, **dict(k, alpha_mid=k["alpha_mid"]
                                             .double()))
     with pytest.raises(ValueError):
         fastk_adjoint(cfg.freqs_ghz, **dict(k, ds=k["ds"][:, :, 1:]))
     with pytest.raises(ValueError):
-        fastk_adjoint(cfg.freqs_ghz, **dict(
-            k, ds=k["ds"].transpose(1, 2).contiguous().transpose(1, 2)))
+        fastk_adjoint(cfg.freqs_ghz, **dict(k, alpha_mid=k["alpha_mid"]
+                                            .transpose(1, 2).contiguous()
+                                            .transpose(1, 2)))
+    # the wrapper lays the chords out as the kernel reads them
+    strided = fastk_adjoint(cfg.freqs_ghz, **dict(
+        k, ds=k["ds"].transpose(1, 2).contiguous().transpose(1, 2)))
+    for name, v in fastk_adjoint(cfg.freqs_ghz, **k).items():
+        assert torch.equal(strided[name], v), name
     with pytest.raises(ValueError):
         fastk_adjoint(cfg.freqs_ghz + cfg.freqs_ghz, **k)
     with pytest.raises(ValueError):
@@ -1115,7 +1119,7 @@ def test_forward_stage_on_the_card(device, tmp_path):
     assert len(names) == len(models) + 6
     assert all(np.isfinite(out[k].data).all() for k in names)
     plain = forward_stage(ds.copy(), models, params, batch_size=2,
-                          fused=False, device=device)
+                          use_kernels=False, device=device)
     for name in ("TBs_LBL_R24", "TBs_LBL_R17", "TBs_Fast"):
         np.testing.assert_allclose(out[name].data, plain[name].data,
                                    rtol=0, atol=1e-2, err_msg=name)

@@ -201,11 +201,11 @@ def test_compressed_upload_tb_budget(harmonized):
 
 def test_plain_path_matches_the_kernels_wrappers(harmonized, staged,
                                                  jax_weights):
-    """fused=False runs the plain versions; on the CPU the wrappers take
+    """use_kernels=False runs the plain versions; on the CPU the wrappers take
     them too, so the two agree to the last bit."""
     got = forward_stage(harmonized.copy(), models=MODELS,
                         fast_params=jax_weights[1], with_jacobians=True,
-                        fused=False, device="cpu")
+                        use_kernels=False, device="cpu")
     for name in OUTPUTS:
         np.testing.assert_array_equal(got[name].data, staged[0][name].data,
                                       err_msg=name)

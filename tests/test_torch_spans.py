@@ -74,9 +74,8 @@ def _forward():
     return lbl.forward_batch(_profiles(), CFG)
 
 
-def _kmatrix(fused):
-    return lambda: jacobians.kmatrix_batch_fast(_profiles(), CFG,
-                                                fused=fused)
+def _kmatrix(wrt):
+    return lambda: jacobians.kmatrix_batch_fast(_profiles(), CFG, wrt=wrt)
 
 
 def _spectrum():
@@ -115,8 +114,9 @@ def _stage():
 
 ENTRIES = {
     "forward_batch": _forward,
-    "kmatrix_fused": _kmatrix(True),
-    "kmatrix_closed_form": _kmatrix(False),
+    "kmatrix_fused": _kmatrix(("t", "rho", "lwc")),
+    # "p" takes the closed form
+    "kmatrix_closed_form": _kmatrix(("t", "rho", "lwc", "p")),
     "spectral": _spectrum,
     "stage": _stage,
     "retrieve": _retrieve,
@@ -124,6 +124,9 @@ ENTRIES = {
 
 # each entry's root spans and, under each root, its child spans in order
 N_CHUNKS = -(-GRID.size // CHUNK)
+FAST_TREE = ("fast.forward_batch", ["fast.layout", "fast.extinction",
+                                    "fast.refractive_index",
+                                    "fast.output_layout"])
 KMATRIX_TREE = [("kmatrix.kmatrix_batch_fast",
                  ["kmatrix.layout", "kmatrix.dalpha_dlwc",
                   "kmatrix.slant_geometry", "kmatrix.output_layout"])]
@@ -140,7 +143,7 @@ TREES = {
                  ("spectral.srf_convolve", [])],
     "stage": [("stage.forward_stage", CROP + CROP + ["stage.pull"])],
     # the observations' fast forward, then the retrieval
-    "retrieve": [("fast.forward_batch", ["fast.extinction"]),
+    "retrieve": [FAST_TREE,
                  ("oem.retrieve_batch",
                   ["oem.prior", "oem.forward", "oem.jacobian", "oem.accept"]
                   + ["oem.solve", "oem.forward", "oem.jacobian",
@@ -250,10 +253,10 @@ def test_the_stage_nests_the_entry_points_under_its_enqueue(runs):
 
 
 def test_the_retrieval_nests_the_fast_operator_and_its_k(runs):
-    """Each step's forward holds the fast operator's spans (its plain path
-    on the CPU), each Jacobian the closed-form K's."""
+    """Each step's forward holds the fast operator's spans, each Jacobian
+    the closed-form K's."""
     root = _tree(runs["retrieve"][2])[-1]
-    under = {"oem.forward": [("fast.forward_batch", ["fast.extinction"])],
+    under = {"oem.forward": [FAST_TREE],
              "oem.jacobian": [("fastk.kmatrix_fast_adjoint_batch",
                                ["fastk.geometry", "fastk.partials",
                                 "fastk.rte_adjoint", "fastk.assembly"])]}
