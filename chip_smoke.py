@@ -35,15 +35,16 @@ twenty-five phases, each printing its own lines:
      leaves the host out;
   5. the absorption tangent kernel (K4) against its plain version and
      against the function in float64 on the kernel's float32 tables, all
-     nine releases, 256 profiles x 180 levels;
+     nine releases, 256 profiles x 180 levels, and its fourth output,
+     dalpha/dLWC, against the liquid term in float64 (at zero LWC too);
   6. the K-matrix adjoint kernel (K5) for t, rho, lwc and rho+lwc against
      its plain version run in float64, 256 profiles x 10 elevations x 14
      channels x 180 levels, and its LWC columns again on alpha rounded from
      the float64 function; the K-matrix's float64 slant-geometry kernel
      against its plain version (every output within 2 float32 ulp);
   7. the K-matrix path, `kmatrix_batch_fast` on 256 profiles for t, rho and
-     lwc, with the launch counts of K4, the geometry kernel and both K5
-     wrappers;
+     lwc, with the launch counts of K4 (one of them writing dalpha/dLWC),
+     the geometry kernel and both K5 wrappers;
   8. that K-matrix against the plain path in float64 on the card, and its
      physical signs;
   9. CUDA-event times of K4 (with its blocks against its resident slots),
@@ -2104,6 +2105,23 @@ def main() -> int:
         if model == "R24":
             k4_err = max(errs)
             alpha_rounded = ref64[0].float().contiguous()
+    # dalpha/dLWC as K4's fourth output, against the liquid term in float64
+    # on the same float32 T, at zero LWC too; the three others unchanged
+    for lwc_name, lwc in (("LWC of the profiles", kprof["lwc"]),
+                          ("zero LWC", torch.zeros_like(kprof["lwc"]))):
+        args = (*k4_args["R24"][:4], lwc, "R24")
+        three = absorption_tangents_lb(*args)
+        four = absorption_tangents_lb(*args, with_lwc=True)
+        want = jacobians._dalpha_dlwc(cfg, kprof["t"].double())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(three, four))
+        rel = float(((four[3].double() - want).abs().amax(dim=(1, 2))
+                     / want.abs().amax(dim=(1, 2))).max())
+        print(f"phase 5: K4 R24 B={BK} L={L}, {lwc_name}: dalpha/dLWC max "
+              f"per-channel relative {rel:.3e} against float64 (bound 1e-5); "
+              f"alpha and both tangents to the bit of a launch without it: "
+              f"{same}")
+        check(rel <= 1e-5 and same, f"K4 dalpha/dLWC {rel}, same {same}")
 
     # ---- phase 6: K5 against its plain version in float64 ---------------
     cfg_k = dataclasses.replace(cfg, model="R24")
@@ -2180,8 +2198,11 @@ def main() -> int:
                   "kmatrix_assembled_rho_lwc_lb": kmatrix_assembled_rho_lwc_lb}
     for fn in k_counters.values():
         fn.launches = 0
+    absorption_tangents_lb.lwc_launches = 0
     kmat = jacobians.kmatrix_batch_fast(kprofiles, cfg_k, wrt=WRT)
     k_launches = {name: fn.launches for name, fn in k_counters.items()}
+    k_launches["absorption_tangents_lb.lwc"] = (
+        absorption_tangents_lb.lwc_launches)
     torch.cuda.synchronize()
     print(f"phase 7: launches during the K-matrix path: {k_launches}")
     check(all(v == 1 for v in k_launches.values()),
@@ -2221,6 +2242,10 @@ def main() -> int:
         lambda: absorption_tangents_lb_reference(*k4_args["R24"]))
     graph_times["absorption_tangents_lb"] = graph_ms(
         lambda: absorption_tangents_lb(*k4_args["R24"]))
+    k4_lwc_ms = timed_ms(
+        lambda: absorption_tangents_lb(*k4_args["R24"], with_lwc=True))
+    k4_lwc_graph_ms = graph_ms(
+        lambda: absorption_tangents_lb(*k4_args["R24"], with_lwc=True))
     geom_ms = timed_ms(lambda: slant_geometry_lb(*geom_args))
     geom_plain_ms = timed_ms(lambda: slant_geometry_lb_reference(*geom_args))
     graph_times["slant_geometry_lb"] = graph_ms(
@@ -2243,8 +2268,9 @@ def main() -> int:
         graph_times[kernel.__name__] = graph_ms(lambda: kernel(*args))
     print(f"phase 9: K4 tangents B={BK} L={L} F={len(freqs)}: kernel "
           f"{k4_ms:.4f} ms ({graph_times['absorption_tangents_lb']:.4f} ms in "
-          f"a graph), plain {k4_plain_ms:.4f} ms; {k4_blocks} blocks against "
-          f"{k4_slots} resident slots")
+          f"a graph), plain {k4_plain_ms:.4f} ms; with dalpha/dLWC "
+          f"{k4_lwc_ms:.4f} ms ({k4_lwc_graph_ms:.4f} ms in a graph); "
+          f"{k4_blocks} blocks against {k4_slots} resident slots")
     for which, (k_ms, p_ms) in k5_ms.items():
         print(f"phase 9: K5 {which} B={BK} E={len(elevs)} F={len(freqs)} "
               f"L={L}: kernel {k_ms:.4f} ms "

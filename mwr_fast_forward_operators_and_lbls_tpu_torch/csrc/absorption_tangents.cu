@@ -1,6 +1,7 @@
 // K4: total clear/cloudy-sky absorption alpha [Np/km] at up to 16 channels
 // with its elementwise partials dalpha/dT and dalpha/drho, each (F, N), for
-// the N points of flattened (level x profile) arrays.
+// the N points of flattened (level x profile) arrays; and, when asked for,
+// dalpha/dLWC (F, N), the liquid term at unit content.
 //
 // Replaces the TPU kernel
 //   mwr_fast_forward_operators_and_lbls_tpu/ops/pallas/absorption_kernel.py
@@ -13,10 +14,11 @@
 // ::absorption_tangents_grouped follows this body in plain torch.
 //
 // What bounds it on Hopper: arithmetic.  A point reads 16 bytes and writes
-// 12 F; at 14 channels it evaluates 14 x (15 H2O + 49 O2) line shapes and
-// the state of those 64 lines, each quantity with its value and two
-// tangents: some 10,600 instructions of the fp32 pipe and 500 reciprocals a
-// point and group of 7 channels (parallel/profiling.py, `_K4_CODED`).
+// 12 F (16 F with dalpha/dLWC); at 14 channels it evaluates 14 x (15 H2O +
+// 49 O2) line shapes and the state of those 64 lines, each quantity with
+// its value and two tangents: some 10,600 instructions of the fp32 pipe and
+// 500 reciprocals a point and group of 7 channels (parallel/profiling.py,
+// `_K4_CODED`).
 //
 // What the design does about it:
 //  * Channel groups on the grid's y axis.  A thread owns one point and one
@@ -59,6 +61,11 @@
 //    continuum's factor per channel.
 //  * The channels are a kernel argument by value (`Channels`), one slot per
 //    (group, channel), the last channel repeated into the slots past F.
+//  * dalpha/dLWC is the liquid term's -0.06286 f Im[(eps - 1) / (eps + 2)],
+//    which the channel loop forms anyway (it hangs on T alone): stored
+//    there, not divided out of the LWC-weighted term, so a dry point still
+//    gets its derivative.  Without the output the pointer is null and the
+//    test a uniform branch.
 //  * kThreads a block, at least kBlocksPerSm resident: 720 blocks at the
 //    K-matrix shape (256 x 180 points, two groups) fit one wave of
 //    kBlocksPerSm x 132 slots, so no SM waits on a tail.
@@ -146,7 +153,8 @@ absorption_tangents_kernel(const float* __restrict__ p,
                            int nf, const float* __restrict__ tables,
                            Layout lay, int n, float* __restrict__ out,
                            float* __restrict__ out_dt,
-                           float* __restrict__ out_dr) {
+                           float* __restrict__ out_dr,
+                           float* __restrict__ out_dl) {
   extern __shared__ float4 smem4[];
   float* const hdr = reinterpret_cast<float*>(smem4);
   const float* const gl_x = hdr + kHeaderFloats;
@@ -379,6 +387,8 @@ absorption_tangents_kernel(const float* __restrict__ p,
       const float aimag_t = (3.0f * im_t - aimag * 2.0f * (re2 * re_t
                                                           + im * im_t)) / dd;
       const float lk = wk * fc * inv_f2[c];
+      if (out_dl != nullptr && s0 + c < nf)
+        out_dl[static_cast<size_t>(s0 + c) * n + i] = -0.06286f * fc * aimag;
       acc[c] = Dual{sum.v + fmaf(lk, aimag, con_b.v),
                     sum.t + fmaf(lk, aimag_t, con_b.t), sum.r + con_b.r};
     }
@@ -499,7 +509,7 @@ absorption_tangents_kernel(const float* __restrict__ p,
 
 using TangentsKernel = void (*)(const float*, const float*, const float*,
                                 const float*, Channels, int, const float*,
-                                Layout, int, float*, float*, float*);
+                                Layout, int, float*, float*, float*, float*);
 
 // The instantiation for nf channels (groups of group_size(nf)), or null.
 TangentsKernel tangents_kernel(int nf) {
@@ -519,13 +529,14 @@ TangentsKernel tangents_kernel(int nf) {
 
 // alpha, dalpha/dT and dalpha/drho, each (F, N), for the N points of p, t,
 // rho, lwc, all float32 on the device, at the nf <= 16 channels of `freqs`,
-// an array on the HOST; the table carries no O3 lines.  Returns the CUDA
-// error of the launch (0 when it was accepted).
+// an array on the HOST; the table carries no O3 lines.  out_dl, when not
+// null, takes dalpha/dLWC (F, N).  Returns the CUDA error of the launch (0
+// when it was accepted).
 extern "C" int mwr_absorption_tangents_lb(
     const float* p, const float* t, const float* rho, const float* lwc,
     const float* freqs, int nf, const float* tables, int n_h2o, int n_o2,
     int h2o_off, int o2_off, int gl_off, int n, float* out, float* out_dt,
-    float* out_dr, void* stream) {
+    float* out_dr, float* out_dl, void* stream) {
   const TangentsKernel kernel = tangents_kernel(nf);
   if (kernel == nullptr || n < 1) return cudaErrorInvalidValue;
   const Layout lay{n_h2o, n_o2, 0, h2o_off, o2_off, gl_off, gl_off};
@@ -535,7 +546,7 @@ extern "C" int mwr_absorption_tangents_lb(
   const size_t smem = sizeof(float) * smem_floats(n_h2o, n_o2);
   const dim3 grid((n + kThreads - 1) / kThreads, g);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, t, rho, lwc, ch, nf, tables, lay, n, out, out_dt, out_dr);
+      p, t, rho, lwc, ch, nf, tables, lay, n, out, out_dt, out_dr, out_dl);
   return static_cast<int>(cudaGetLastError());
 }
 

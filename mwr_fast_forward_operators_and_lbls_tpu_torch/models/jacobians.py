@@ -17,11 +17,11 @@ elevation, stacked to (B, E, F, L) for a batch, as in the JAX package's
 
 and assembles K_x[e, f, l] = dTB/dalpha[e, f, l] dalpha[f, l]/dx[l] plus the
 direct Planck (t) and refraction-geometry (t, rho, p) terms.  For wrt within
-{t, rho, lwc} it runs the kernels' pipeline: K4 gives alpha and both
-tangent fields in one dual-number pass, one more kernel the float64 slant
-geometry, K5 the adjoint with the assembly folded in, each kernel or its
-plain version by the rule of `ops.cuda.launches`; wrt with "p" takes the
-plain closed form.
+{t, rho, lwc} it runs the kernels' pipeline: K4 gives alpha, both tangent
+fields and, with lwc in wrt, dalpha/dLWC in one dual-number pass, one more
+kernel the float64 slant geometry, K5 the adjoint with the assembly folded
+in, each kernel or its plain version by the rule of `ops.cuda.launches`;
+wrt with "p" takes the plain closed form.
 
 The fast operator (`models/fast.py`) has the same structure with layer-mean
 extinction in place of level absorption: `kmatrix_fast_single` and
@@ -37,10 +37,9 @@ import torch
 
 from ..constants import physics as phys
 from ..ops import geometry, thermo
-from ..ops.absorption import liquid_absorption
 from ..ops.tensors import constant_vector
 from ..ops.cuda.absorption import (absorption_partials_lb,
-                                   absorption_tangents_lb)
+                                   absorption_tangents_lb, dalpha_dlwc_lb)
 from ..ops.cuda.adjoint import (kmatrix_assembled_lb,
                                 kmatrix_assembled_reference,
                                 kmatrix_assembled_rho_lwc_lb)
@@ -117,28 +116,24 @@ def kmatrix_batch_fast(profiles: dict, config: LBLConfig = LBLConfig(),
 
 def _dalpha_dlwc(config: LBLConfig, t):
     """dalpha/dLWC (F, L, B): liquid absorption at unit content."""
-    f = constant_vector(config.freqs_ghz, t.dtype, t.device)
-    return liquid_absorption(f[:, None, None], t[None],
-                             torch.ones_like(t)[None])
+    return dalpha_dlwc_lb(config.freqs_ghz, t)
 
 
 def _kmatrix_batch_fused_lanes(lev: dict, config: LBLConfig, wrt, tables):
     """The kernels' K-matrix pipeline in the level-major (L, B) layout.
 
-    One dual-number pass of K4 gives alpha and its T and rho tangents; the
-    geometry kernel the chords and their sensitivities;
+    One dual-number pass of K4 gives alpha, its T and rho tangents and,
+    with lwc in `wrt`, dalpha/dLWC; the geometry kernel the chords and
+    their sensitivities;
     K5 then writes each requested K (E, F, L, B) with the closed-form
     adjoint and both direct terms folded in: t alone, and rho with lwc from
     one shared adjoint core when all three are asked for.
     """
     freqs, t, kern = config.freqs_ghz, lev["t"], config.use_kernels
-    alpha, da_t, da_rho = absorption_tangents_lb(
+    alpha, *partials = absorption_tangents_lb(
         freqs, lev["p"], t, lev["rho"], lev["lwc"], config.model,
-        tables=tables, use_kernels=kern)
-    da = {"t": da_t, "rho": da_rho}
-    if "lwc" in wrt:
-        with span("kmatrix.dalpha_dlwc"):
-            da["lwc"] = _dalpha_dlwc(config, t)
+        tables=tables, use_kernels=kern, with_lwc="lwc" in wrt)
+    da = dict(zip(("t", "rho", "lwc"), partials))
     with span("kmatrix.slant_geometry"):
         g = slant_geometry_lb(config.elevations_deg, lev["z"], lev["p"], t,
                               lev["rho"], [n for n in wrt if n != "lwc"],

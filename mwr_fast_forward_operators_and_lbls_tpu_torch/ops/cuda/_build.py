@@ -35,8 +35,8 @@ SIGNATURES = {
     # nf, table_floats, n_lines
     "mwr_absorption_resident_warps": [_I] * 3,
     # p, t, rho, lwc, freqs (on the host), nf, tables, n_h2o, n_o2, h2o_off,
-    # o2_off, gl_off, n, out, out_dt, out_dr, stream
-    "mwr_absorption_tangents_lb": [_P] * 5 + [_I, _P] + [_I] * 6 + [_P] * 4,
+    # o2_off, gl_off, n, out, out_dt, out_dr, out_dl (or null), stream
+    "mwr_absorption_tangents_lb": [_P] * 5 + [_I, _P] + [_I] * 6 + [_P] * 5,
     # nf, n_h2o, n_o2
     "mwr_absorption_tangents_resident_warps": [_I] * 3,
     # cos_el64, freqs, alpha, z, n, t, E, F, L, B, alpha_is_mid, hk_ghz,

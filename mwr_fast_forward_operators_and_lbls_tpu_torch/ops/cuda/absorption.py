@@ -3,8 +3,9 @@
 
 `absorption_lb` maps (L, B) level arrays to alpha (F, L, B) [Np/km];
 `absorption_tangents_lb` returns alpha with its elementwise partials in T and
-rho (K4, the same function with both tangents carried through it).  Each
-launches its kernel or runs its plain torch version by the package's rule
+rho (K4, the same function with both tangents carried through it), and on
+request dalpha/dLWC, the liquid term at unit content.  Each launches its
+kernel or runs its plain torch version by the package's rule
 (`ops.cuda.launches`).
 
 K1 evaluates one merged rational per line from a per-point state, as K6
@@ -23,9 +24,10 @@ import numpy as np
 import torch
 
 from ...constants import H2O_MODELS, O2_MODELS, o3_lines
-from ..absorption import total_absorption
+from ..absorption import liquid_absorption, total_absorption
 from ..absorption.h2o import _GL_W, _GL_X
 from ..spans import span
+from ..tensors import constant_vector
 from . import _build, launches
 
 # Scalar slots at the head of the packed table, in the order of the `Header`
@@ -173,11 +175,24 @@ def absorption_partials_lb(freqs, p, t, rho, lwc, model: str = "R24",
     return alpha, partials
 
 
+def dalpha_dlwc_lb(freqs, t):
+    """dalpha/dLWC (F, L, B) [Np/km per g/m^3] at the channels `freqs`
+    [GHz] on (L, B) T [K]: liquid absorption at unit content (cloud
+    absorption is linear in the LWC)."""
+    f = constant_vector(freqs, t.dtype, t.device)
+    return liquid_absorption(f[:, None, None], t[None],
+                             torch.ones_like(t)[None])
+
+
 def absorption_tangents_lb_reference(freqs, p, t, rho, lwc,
-                                     model: str = "R24"):
+                                     model: str = "R24",
+                                     with_lwc: bool = False):
     """Plain version of K4: alpha, dalpha/dT and dalpha/drho, each (F, L, B),
-    from two jvp passes of `absorption_lb_reference`."""
+    from two jvp passes of `absorption_lb_reference`; with `with_lwc`,
+    `dalpha_dlwc_lb` fourth."""
     alpha, d = absorption_partials_lb(freqs, p, t, rho, lwc, model)
+    if with_lwc:
+        return alpha, d["t"], d["rho"], dalpha_dlwc_lb(freqs, t)
     return alpha, d["t"], d["rho"]
 
 
@@ -295,22 +310,25 @@ def tangent_blocks(n_points: int, n_channels: int) -> int:
 
 
 def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
-                           tables=None, use_kernels: bool = True):
+                           tables=None, use_kernels: bool = True,
+                           with_lwc: bool = False):
     """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] -> alpha,
     dalpha/dT [Np/km/K] and dalpha/drho [Np/km per g/m^3], each (F, L, B),
-    in one pass that carries both tangents.
+    in one pass that carries both tangents; with `with_lwc`, dalpha/dLWC
+    [Np/km per g/m^3] (F, L, B) fourth, from the same pass.
 
     K4 or the plain version by `launches(p, use_kernels)`; K4 takes
     contiguous arrays and `tables`, the packed `line_tables(model, False,
     device)` (K4 has no O3 term), built and cached here when not given.
     """
     if not launches(p, use_kernels):
-        return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model)
+        return absorption_tangents_lb_reference(freqs, p, t, rho, lwc, model,
+                                                with_lwc)
     with span("cuda.absorption_tangents_lb"):
         layout, tables = _kernel_args(
             freqs, dict(p=p, t=t, rho=rho, lwc=lwc), model, False, tables)
-        out = torch.empty((3, len(freqs), *p.shape), dtype=torch.float32,
-                          device=p.device)
+        out = torch.empty((4 if with_lwc else 3, len(freqs), *p.shape),
+                          dtype=torch.float32, device=p.device)
         # K4 takes its channels by value, as K1 does
         f = (ctypes.c_float * len(freqs))(*freqs)
         with torch.cuda.device(p.device):
@@ -319,16 +337,19 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
                 ctypes.addressof(f), len(freqs), tables.data_ptr(),
                 layout.n_h2o, layout.n_o2, layout.h2o, layout.o2, layout.gl,
                 p.numel(), out[0].data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr(),
+                out[2].data_ptr(), out[3].data_ptr() if with_lwc else None,
                 torch.cuda.current_stream(p.device).cuda_stream)
         if err:
             raise RuntimeError(f"absorption tangent kernel launch failed: "
                                f"CUDA error {err}")
         absorption_tangents_lb.launches += 1
-        return out[0], out[1], out[2]
+        absorption_tangents_lb.lwc_launches += with_lwc
+        return tuple(out)
 
 
 absorption_tangents_lb.launches = 0
+# the launches that wrote dalpha/dLWC
+absorption_tangents_lb.lwc_launches = 0
 
 
 def tangent_resident_warps(n_channels: int = 14, model: str = "R24") -> int:

@@ -191,6 +191,52 @@ def test_routing_on_cpu(batch, monkeypatch):
     assert launches(cuda64, use_kernels=False) is False
 
 
+def _assembled_plain(lev, cfg, da_lwc):
+    """The pipeline's plain stages in turn, dalpha/dLWC given: K4's plain
+    version without its fourth output, the geometry, K5a and K5b, each
+    with use_kernels=False; {name: (B, E, F, L)}."""
+    f, t = cfg.freqs_ghz, lev["t"]
+    alpha, da_t, da_rho = absorption.absorption_tangents_lb(
+        f, lev["p"], t, lev["rho"], lev["lwc"], cfg.model, use_kernels=False)
+    g = geometry.slant_geometry_lb(cfg.elevations_deg, lev["z"], lev["p"], t,
+                                   lev["rho"], ("t", "rho"),
+                                   use_kernels=False)
+    geo = (g["dds_dnl"], g["dds_dk"])
+    k = {"t": adjoint.kmatrix_assembled_lb(
+        f, "t", alpha, da_t, g["ds"], t, *geo, g["dn"]["t"], g["r0cos"],
+        use_kernels=False)}
+    k["rho"], k["lwc"] = adjoint.kmatrix_assembled_rho_lwc_lb(
+        f, alpha, da_rho, da_lwc, g["ds"], t, *geo, g["dn"]["rho"],
+        g["r0cos"], use_kernels=False)
+    return {n: v.permute(3, 0, 1, 2) for n, v in k.items()}
+
+
+@pytest.mark.parametrize("freqs", [F_SUB, lbl.LBLConfig().freqs_ghz],
+                         ids=["3ch", "hatpro"])
+def test_plain_k4_writes_what_dalpha_dlwc_gave(batch, freqs):
+    """On the plain path dalpha/dLWC comes from K4's plain version: the
+    K-matrix is the same to the bit as the same stages fed `_dalpha_dlwc`,
+    the plain K4's first three outputs do not hang on `with_lwc`, and no
+    launch counts."""
+    cfg = dataclasses.replace(CFG, freqs_ghz=freqs)
+    lev = lbl.level_major_profiles(batch, cfg)
+    args = (freqs, lev["p"], lev["t"], lev["rho"], lev["lwc"], cfg.model)
+    counters = (absorption.absorption_tangents_lb.launches,
+                absorption.absorption_tangents_lb.lwc_launches)
+    three = absorption.absorption_tangents_lb(*args)
+    four = absorption.absorption_tangents_lb(*args, with_lwc=True)
+    assert len(three) == 3 and len(four) == 4
+    for a, b in zip(three, four):
+        assert torch.equal(a, b)
+    assert torch.equal(four[3], jacobians._dalpha_dlwc(cfg, lev["t"]))
+    got = jacobians.kmatrix_batch_fast(batch, cfg, wrt=WRT)
+    want = _assembled_plain(lev, cfg, jacobians._dalpha_dlwc(cfg, lev["t"]))
+    for name in WRT:
+        assert torch.equal(got[name], want[name]), name
+    assert (absorption.absorption_tangents_lb.launches,
+            absorption.absorption_tangents_lb.lwc_launches) == counters
+
+
 @pytest.mark.parametrize("wrt", [("t",), ("rho",), ("lwc",), ("rho", "lwc"),
                                  ("t", "lwc")])
 def test_lanes_subsets_match_closed_form(batch64, closed64, wrt):

@@ -331,6 +331,58 @@ def test_tangent_kernel_matches_plain(device, model, n_channels):
         assert bool((err <= bound * scale).all()), (err / scale).max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud", [False, True], ids=["dry", "cloud"])
+@pytest.mark.parametrize("n_channels", [14, 5])
+def test_tangent_kernel_writes_dalpha_dlwc(device, n_channels, cloud):
+    """K4's fourth output against `_dalpha_dlwc` run in float64 on the same
+    float32 T: 1e-5 of each channel's largest value, at zero LWC as well
+    (the derivative does not hang on the content).  14 channels are two
+    groups of 7, 5 channels one group; 67 x 180 points leave the last
+    block of 128 part full.  The three other outputs are those of a launch
+    without it, to the bit."""
+    prof = _levels(67, 180, device)
+    lwc = (prof["lwc"] + 0.2 * (prof["lwc"] == 0) if cloud
+           else torch.zeros_like(prof["lwc"]))
+    freqs = (FREQS if n_channels == len(FREQS) else
+             tuple(torch.linspace(22.24, 58.0, n_channels).tolist()))
+    args = (freqs, prof["p"], prof["t"], prof["rho"], lwc.contiguous(), "R24")
+    before = (absorption_tangents_lb.launches,
+              absorption_tangents_lb.lwc_launches)
+    three = absorption_tangents_lb(*args)
+    four = absorption_tangents_lb(*args, with_lwc=True)
+    assert (absorption_tangents_lb.launches,
+            absorption_tangents_lb.lwc_launches) == (before[0] + 2,
+                                                     before[1] + 1)
+    want = jacobians._dalpha_dlwc(lbl.LBLConfig(freqs_ghz=freqs),
+                                  prof["t"].double())
+    torch.cuda.synchronize()
+    assert len(three) == 3 and len(four) == 4
+    for a, b in zip(three, four):
+        assert torch.equal(a, b)
+    got = four[3]
+    assert got.shape == (n_channels, 180, 67) and got.is_contiguous()
+    err = (got.double() - want).abs().amax(dim=(1, 2))
+    scale = want.abs().amax(dim=(1, 2))
+    assert bool((scale > 0).all())
+    assert bool((err <= 1e-5 * scale).all()), (err / scale).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrt", [("t", "rho", "lwc"), ("t", "lwc"),
+                                 ("lwc",), ("t", "rho"), ("rho",)])
+def test_kmatrix_asks_k4_for_dalpha_dlwc_only_with_lwc(device, wrt):
+    """The K-matrix's one K4 launch writes dalpha/dLWC when wrt names lwc,
+    and only then."""
+    profiles = lbl.demo_batch(3, 180, device=device)
+    before = (absorption_tangents_lb.launches,
+              absorption_tangents_lb.lwc_launches)
+    jacobians.kmatrix_batch_fast(profiles, lbl.LBLConfig(), wrt=wrt)
+    assert (absorption_tangents_lb.launches,
+            absorption_tangents_lb.lwc_launches) == (
+        before[0] + 1, before[1] + ("lwc" in wrt))
+
+
 def _k5_inputs(batch, device, n_levels=180):
     prof = _levels(batch, n_levels, device)
     cfg = lbl.LBLConfig()

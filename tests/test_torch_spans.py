@@ -127,16 +127,21 @@ N_CHUNKS = -(-GRID.size // CHUNK)
 FAST_TREE = ("fast.forward_batch", ["fast.layout", "fast.extinction",
                                     "fast.refractive_index",
                                     "fast.output_layout"])
-KMATRIX_TREE = [("kmatrix.kmatrix_batch_fast",
-                 ["kmatrix.layout", "kmatrix.dalpha_dlwc",
-                  "kmatrix.slant_geometry", "kmatrix.output_layout"])]
+# K4 (or its plain version) writes dalpha/dLWC on the kernels' pipeline; the
+# closed form takes it under its own span
+KMATRIX_FUSED_TREE = [("kmatrix.kmatrix_batch_fast",
+                       ["kmatrix.layout", "kmatrix.slant_geometry",
+                        "kmatrix.output_layout"])]
+KMATRIX_CLOSED_TREE = [("kmatrix.kmatrix_batch_fast",
+                        ["kmatrix.layout", "kmatrix.dalpha_dlwc",
+                         "kmatrix.slant_geometry", "kmatrix.output_layout"])]
 CROP = ["stage.screen", "stage.upload", "stage.enqueue", "stage.mask"]
 TREES = {
     "forward_batch": [("lbl.forward_batch",
                        ["lbl.layout", "lbl.refractive_index",
                         "lbl.output_layout"])],
-    "kmatrix_fused": KMATRIX_TREE,
-    "kmatrix_closed_form": KMATRIX_TREE,
+    "kmatrix_fused": KMATRIX_FUSED_TREE,
+    "kmatrix_closed_form": KMATRIX_CLOSED_TREE,
     "spectral": [("spectral.forward_spectral",
                   ["spectral.layout", "spectral.slant_geometry"]
                   + ["spectral.chunk"] * N_CHUNKS),
