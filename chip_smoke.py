@@ -8,7 +8,7 @@ and check them.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's kernels from `csrc/` and goes through
-twenty-five phases, each printing its own lines:
+twenty-six phases, each printing its own lines:
 
   0. the card (nvidia-smi name and power limit), torch/CUDA versions,
      whether matplotlib and h5py import on the host, the
@@ -168,7 +168,20 @@ twenty-five phases, each printing its own lines:
      every number finite and > 0, every `*_roofline_frac` at most 1, the
      launches of each kernel as predicted from the bench's timing table,
      and each timed call's output equal to the bit to its entry point
-     called directly on the same inputs.
+     called directly on the same inputs;
+ 25. the Radiometrics MP-3000A's 22 channels (`mp3000a_phase`): K1's body
+     at 22 channels and K4 in three groups of 8 slots, their registers,
+     spills (none in any of K1's bodies past 16 channels) and resident
+     warps; K1 and K2 at the archive cells' B=4096 (K2 on its 16-byte
+     copies; K1 also at its ceiling of 32 in a graph), K4 at the K-matrix's
+     B=256, each against its plain version (K1 also against float64 on its
+     tables, K2 against its plain version in float64), timed as a wrapper
+     call, in a graph and plain, and set against its bound; the launches
+     of `forward_batch`, `forward_all_models` and `kmatrix_batch_fast`
+     against the plain path in float64 at B=128 and B=130 (K2's 16-byte
+     and 4-byte copies); and the digests of HATPRO's 14-channel TBs and K
+     (`hatpro_digests`), which have to equal those of commit a275ac1 (K1
+     and K4 at 16 channels and fewer) on the card they were taken on.
 
 It then prints one JSON line of per-kernel results (with the launches of
 the main path, of phase 20's stage call, of phase 21's CLI calls, of
@@ -179,6 +192,7 @@ Without a CUDA device it exits with 1 and prints no result.
 """
 
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import pathlib
@@ -1714,6 +1728,257 @@ def bench_phase(dev, counted, smi):
     return launches
 
 
+MP3000A = (22.234, 22.5, 23.034, 23.834, 25.0, 26.234, 28.0, 30.0, 51.248,
+           51.76, 52.28, 52.804, 53.336, 53.848, 54.4, 54.94, 55.5, 56.02,
+           56.66, 57.288, 57.964, 58.8)
+B_ARCHIVE = 4096        # the archive cells' batch (mwrbench)
+
+
+# HATPRO's digests as `hatpro_digests` printed them at commit a275ac1, the
+# last version whose K1 and K4 took at most 16 channels, on an NVIDIA H100
+# 80GB HBM3; the phase holds every later version to them on that card.  A
+# change meant to move HATPRO's TBs or K (any kernel or step they pass
+# through) records its own digests here, with its commit.
+HATPRO_DIGESTS = ("NVIDIA H100 80GB HBM3",
+                  {"tb": "ca4aa251f50f39bc", "k": "ce03e07481823ef4"})
+
+
+def hatpro_digests(dev) -> dict:
+    """sha256 (first 16 hex digits) of HATPRO's 14-channel TBs from
+    `forward_batch` (B=1024, R24) and of its K-matrix wrt (t, rho, lwc)
+    (B=256), on seeded demo profiles: a version whose K1 and K4 bodies at 16
+    channels and fewer are unchanged prints the same."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+        jacobians, lbl)
+    cfg = lbl.LBLConfig(model="R24")
+    tb = lbl.forward_batch(lbl.demo_batch(B, L, seed=25, device=dev),
+                           cfg)["tb"]
+    kmat = jacobians.kmatrix_batch_fast(
+        lbl.demo_batch(BK, L, seed=26, device=dev), cfg, wrt=WRT)
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+    return {"tb": digest(tb), "k": digest(*(kmat[w] for w in WRT))}
+
+
+def mp3000a_phase(dev, smi, ptxas, peaks) -> dict:
+    """Phase 25: the Radiometrics MP-3000A's 22 channels, past the 16 that
+    K1 and K4 took before.  K1's body at 22 channels and K2 at the archive
+    cells' B=4096 x 180, K4 in three groups of 8 slots at the K-matrix's
+    B=256: their registers and spills, resident warps, wrapper time, time
+    in a graph and their plain versions' time, their bounds at the
+    published peaks and at phase 14's measured `peaks`, and agreement with
+    the plain versions; the entry points' launches at a batch of 4n (K2's
+    16-byte copies) and of 4n + 2 (its 4-byte copies); HATPRO's digests
+    against `HATPRO_DIGESTS`.  Returns the launch counts."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
+        jacobians, lbl)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (geometry,
+                                                                   thermo)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+        absorption as k1_mod)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (  # noqa: E501
+        absorption_lb, absorption_lb_float64, absorption_lb_reference,
+        absorption_tangents_lb, absorption_tangents_lb_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
+        forward_lb, forward_lb_body, forward_lb_reference)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.parallel import (
+        profiling)
+    nf = len(MP3000A)
+    per = k1_mod.tangent_groups(nf)
+    for src, name, report in ptxas:
+        wide = src.startswith("absorption_f")   # K1's bodies past 16
+        if wide or name == f"absorption_tangents_kernel<{per[1]}>":
+            if not wide or name.endswith(f"<{nf}>"):
+                print(f"phase 25: ptxas: {src} {name}: {report}")
+            check(not re.search(r"[1-9]\d* bytes spill", report),
+                  f"{name} spills: {report}")
+    for what, w, least in (
+            ("K1", k1_mod.resident_warps(nf, "R24"), 20),
+            ("K4", k1_mod.tangent_resident_warps(nf, "R24"), 24)):
+        print(f"phase 25: {what} at {nf} channels: {w} warps resident per SM")
+        check(w >= least, f"{what} at {nf} channels: {w} warps per SM")
+    print(f"phase 25: K1 one launch of its body at {nf} channels; K4 "
+          f"{per[0]} groups of {per[1]} slots on the grid's y axis")
+
+    def bound_line(kid, roof, ms, device_ms):
+        """The bound at the published peaks and at the measured rates, and
+        the shares of the wrapper's and of the graph's time."""
+        b_pub = roof.time_bound_s() * 1e3
+        b_meas = roof.time_bound_s(peaks) * 1e3
+        check(b_pub <= device_ms and b_meas <= device_ms,
+              f"{kid} at {nf} channels runs under its bound in a graph")
+        return (f"bound {b_pub:.4f} ms by {roof.bound_by()} at the published "
+                f"peaks (share {b_pub / ms:.4f}, {b_pub / device_ms:.4f} in a "
+                f"graph), {b_meas:.4f} ms by {roof.bound_by(peaks)} at the "
+                f"measured rates (share {b_meas / ms:.4f}, "
+                f"{b_meas / device_ms:.4f} in a graph)")
+
+    # K1 and K2 at the archive cells' shape
+    prof = level_major(lbl.demo_batch(B_ARCHIVE, L, device=dev))
+    args = (MP3000A, prof["p"], prof["t"], prof["rho"], prof["lwc"], "R24")
+    before = absorption_lb.launches
+    alpha = absorption_lb(*args)
+    check(absorption_lb.launches - before == 1, "K1 at 22 channels: one "
+          "launch")
+    plain = absorption_lb_reference(*args)
+    sub = tuple(a[:, :64].contiguous() if torch.is_tensor(a) else a
+                for a in args)
+    want64 = absorption_lb_float64(*sub)
+    torch.cuda.synchronize()
+    scale = plain.abs().amax(dim=(1, 2))
+    err = float(((alpha - plain).abs().amax(dim=(1, 2)) / scale).max())
+    err64 = float(((alpha[:, :, :64].double() - want64).abs().amax(dim=(1, 2))
+                   / want64.abs().amax(dim=(1, 2))).max())
+    check(err <= 1e-4 and err64 <= 5e-6, f"K1 at 22 channels: {err}, {err64}")
+    del plain
+    k1_ms = timed_ms(lambda: absorption_lb(*args))
+    k1_plain_ms = timed_ms(lambda: absorption_lb_reference(*args))
+    k1_graph = graph_ms(lambda: absorption_lb(*args))
+    k1_14_graph = graph_ms(lambda: absorption_lb(lbl.LBLConfig().freqs_ghz,
+                                                 *args[1:]))
+    ceiling = tuple(np.linspace(22.24, 58.0, k1_mod.MAX_CHANNELS).tolist())
+    k1_32_graph = graph_ms(lambda: absorption_lb(ceiling, *args[1:]))
+    print(f"phase 25: K1 B={B_ARCHIVE} L={L} F={nf}: worst per-channel share "
+          f"{err:.3e} of the plain version, {err64:.3e} of float64 on its "
+          f"tables (64 profiles); kernel {k1_ms:.4f} ms ({k1_graph:.4f} ms "
+          f"in a graph; F=14: {k1_14_graph:.4f} ms; F={len(ceiling)}: "
+          f"{k1_32_graph:.4f} ms), plain {k1_plain_ms:.4f} ms; "
+          + bound_line("K1", profiling.k1_roofline(B_ARCHIVE * L, MP3000A),
+                       k1_ms, k1_graph))
+
+    # K2 on the same alpha, against its plain version as phase 2 holds it
+    n = geometry.refractive_index(prof["p"], prof["t"],
+                                  thermo.rho_to_e(prof["rho"], prof["t"]))
+    elevs = lbl.LBLConfig().elevations_deg
+    k2_args = (MP3000A, elevs, alpha, prof["z"], n, prof["t"])
+    body = forward_lb_body(alpha, len(elevs))
+    check(body == "staged", f"K2 at B={B_ARCHIVE}: the {body} body")
+    got = forward_lb(*k2_args)["tb"]
+    ref = forward_lb_reference(*k2_args)["tb"]
+    ref64 = forward_lb_reference(*(a.double() if torch.is_tensor(a) else a
+                                   for a in k2_args))["tb"]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "K2 at 22 channels: not finite")
+    k2_err = float((got - ref).abs().max())
+    k2_err64 = float((got.double() - ref64).abs().max())
+    check(k2_err <= 5e-3 and k2_err64 <= 2e-3,
+          f"K2 at 22 channels: max|dtb| {k2_err} K, {k2_err64} K vs float64")
+    del got, ref, ref64
+    k2_ms = timed_ms(lambda: forward_lb(*k2_args))
+    k2_plain_ms = timed_ms(lambda: forward_lb_reference(*k2_args))
+    k2_graph = graph_ms(lambda: forward_lb(*k2_args))
+    ds_scan = torch.stack([geometry.chord_lengths(prof["z"], n, c) for c in
+                           torch.cos(torch.deg2rad(torch.tensor(
+                               elevs, device=dev)))])
+    small_k2 = profiling.small_dtau_share(
+        (0.5 * (alpha[:, :-1] + alpha[:, 1:]))[None] * ds_scan[:, None])
+    planck_k2 = profiling.planck_series_share(MP3000A, prof["t"])
+    del ds_scan
+    print(f"phase 25: K2 B={B_ARCHIVE} E={len(elevs)} F={nf} L={L}, the "
+          f"{body} body: max|d tb| {k2_err:.3e} K against the plain version, "
+          f"{k2_err64:.3e} K against it in float64; kernel {k2_ms:.4f} ms "
+          f"({k2_graph:.4f} ms in a graph), plain {k2_plain_ms:.4f} ms; "
+          + bound_line("K2", profiling.k2_roofline(
+              B_ARCHIVE, L, nf, len(elevs), small_dtau_fraction=small_k2,
+              planck_series_fraction=planck_k2), k2_ms, k2_graph))
+    cfg = lbl.LBLConfig(model="R24", freqs_ghz=MP3000A, outputs=("tb",))
+    del alpha, n, prof
+    profiles = lbl.demo_batch(B_ARCHIVE, L, device=dev)
+    fwd_ms = timed_ms(lambda: lbl.forward_batch(profiles, cfg))
+    print(f"phase 25: forward_batch B={B_ARCHIVE} F={nf}: {fwd_ms:.4f} ms = "
+          f"{B_ARCHIVE * len(elevs) / (fwd_ms * 1e-3):.6g} spectra/s ({smi})")
+    del profiles
+
+    # K4 at the K-matrix's shape
+    kprof = level_major(lbl.demo_batch(BK, L, device=dev))
+    kargs = (MP3000A, kprof["p"], kprof["t"], kprof["rho"], kprof["lwc"],
+             "R24")
+    before = absorption_tangents_lb.launches
+    got = absorption_tangents_lb(*kargs)
+    check(absorption_tangents_lb.launches - before == 1,
+          "K4 at 22 channels: one launch")
+    want = absorption_tangents_lb_reference(*kargs)
+    torch.cuda.synchronize()
+    k4_err = [float(((g - w).abs().amax(dim=(1, 2))
+                     / w.abs().amax(dim=(1, 2))).max())
+              for g, w in zip(got, want)]
+    check(k4_err[0] <= 1e-4 and max(k4_err[1:]) <= 1e-3,
+          f"K4 at 22 channels: {k4_err}")
+    del got, want
+    # timed as phase 4 times K4 at 14 channels: without dalpha/dLWC, and
+    # with it in a graph
+    k4_ms = timed_ms(lambda: absorption_tangents_lb(*kargs))
+    k4_plain_ms = timed_ms(lambda: absorption_tangents_lb_reference(*kargs))
+    k4_graph = graph_ms(lambda: absorption_tangents_lb(*kargs))
+    k4_lwc_graph = graph_ms(lambda: absorption_tangents_lb(*kargs,
+                                                           with_lwc=True))
+    print(f"phase 25: K4 B={BK} L={L} F={nf}: worst per-channel share of the "
+          f"plain version alpha {k4_err[0]:.3e}, d/dT {k4_err[1]:.3e}, "
+          f"d/drho {k4_err[2]:.3e}; kernel {k4_ms:.4f} ms ({k4_graph:.4f} ms "
+          f"in a graph; with dalpha/dLWC {k4_lwc_graph:.4f} ms), plain "
+          f"{k4_plain_ms:.4f} ms; "
+          + bound_line("K4", profiling.k4_roofline(BK * L, MP3000A), k4_ms,
+                       k4_graph))
+
+    # the entry points: launches, against the plain path in float64, at a
+    # batch K2 copies in 16-byte pieces and at one it copies in 4-byte ones
+    names = ("absorption_lb", "forward_lb", "absorption_tangents_lb",
+             "slant_geometry_lb", "kmatrix_assembled_lb",
+             "kmatrix_assembled_rho_lwc_lb")
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
+        adjoint, geometry as kgeo, rte)
+    counters = (absorption_lb, rte.forward_lb, absorption_tangents_lb,
+                kgeo.slant_geometry_lb, adjoint.kmatrix_assembled_lb,
+                adjoint.kmatrix_assembled_rho_lwc_lb)
+    kcfg = lbl.LBLConfig(model="R24", freqs_ghz=MP3000A)
+    cfg64 = dataclasses.replace(kcfg, dtype="float64", use_kernels=False)
+    launched = {}
+    for batch in (128, 130):
+        before = [c.launches for c in counters]
+        small = lbl.demo_batch(batch, L, device=dev)
+        tb = lbl.forward_batch(small, kcfg)["tb"]
+        sweep = lbl.forward_all_models(small, kcfg)
+        kmat = jacobians.kmatrix_batch_fast(small, kcfg, wrt=WRT)
+        launched = {nm: c.launches - b for nm, c, b in zip(names, counters,
+                                                           before)}
+        check(list(launched.values()) == [5, 5, 1, 1, 1, 1],
+              f"launches at 22 channels, B={batch}: {launched}")
+        s64 = {k: v.double() for k, v in small.items()}
+        d_tb = float((tb.double() - lbl.forward_batch(s64, cfg64)["tb"])
+                     .abs().max())
+        d_sweep = max(float((sweep[m].double() - lbl.forward_batch(
+            s64, dataclasses.replace(cfg64, model=m))["tb"]).abs().max())
+            for m in sweep)
+        want_k = jacobians.kmatrix_batch_fast(s64, cfg64, wrt=WRT)
+        k_err = {w: k_error(kmat[w], want_k[w]) for w in WRT}
+        check(d_tb <= 1e-2 and d_sweep <= 1e-2 and max(k_err.values()) <= 1e-3,
+              f"entry points at 22 channels, B={batch}: {d_tb}, {d_sweep}, "
+              f"{k_err}")
+        body = "staged" if batch % 4 == 0 else "staged, 4-byte copies"
+        print(f"phase 25: launches by forward_batch, forward_all_models (4 "
+              f"releases) and kmatrix_batch_fast at 22 channels, B={batch} "
+              f"(K2's {body} body): {launched}; K4's groups a launch "
+              f"{per[0]}; max|dTB| "
+              f"vs the plain path in float64 {d_tb:.3e} K (the sweep "
+              f"{d_sweep:.3e} K); K against it {k_err}")
+    digests = hatpro_digests(dev)
+    card, parent = HATPRO_DIGESTS
+    if torch.cuda.get_device_name(dev) == card:
+        check(digests == parent, f"HATPRO's digests {digests} are not "
+              f"{parent}: its TBs or K changed (K1 or K4 at 16 channels "
+              f"and fewer, or another step of theirs)")
+        print(f"phase 25: HATPRO digests (14 channels, R24): {digests}, "
+              f"equal to a275ac1's on the {card}")
+    else:
+        print(f"phase 25: HATPRO digests (14 channels, R24): {digests}; "
+              f"a275ac1's were taken on the {card}, not compared")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3110,6 +3375,9 @@ def main() -> int:
         alpha_is_mid_device_ms=graph_times["forward_lb[alpha_is_mid]"],
         alpha_is_mid_bound_ms=bounds["forward_lb[alpha_is_mid]"][0],
         narrow_copies_device_ms=k2_narrow_ms[0])
+    # ---- phase 25: the MP-3000A's 22 channels ------------------------------
+    mp3000a_phase(dev, smi, ptxas_report(
+        lib_path.with_suffix(".log").read_text()), peaks)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

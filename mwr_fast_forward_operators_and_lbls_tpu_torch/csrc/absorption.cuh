@@ -19,7 +19,9 @@ enum Header {
   kN2Coef, kN2Exp, kN2Fdep,
 };
 
-constexpr int kMaxChannels = 16;
+// The most channels one call of K1 or K4 takes (MAX_CHANNELS in
+// ops/cuda/absorption.py).
+constexpr int kMaxChannels = 32;
 constexpr int kGlNodes = 16;
 
 struct Layout {

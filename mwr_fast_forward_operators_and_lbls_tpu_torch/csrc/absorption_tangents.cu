@@ -1,4 +1,4 @@
-// K4: total clear/cloudy-sky absorption alpha [Np/km] at up to 16 channels
+// K4: total clear/cloudy-sky absorption alpha [Np/km] at up to 32 channels
 // with its elementwise partials dalpha/dT and dalpha/drho, each (F, N), for
 // the N points of flattened (level x profile) arrays; and, when asked for,
 // dalpha/dLWC (F, N), the liquid term at unit content.
@@ -23,7 +23,8 @@
 // What the design does about it:
 //  * Channel groups on the grid's y axis.  A thread owns one point and one
 //    group of at most kGroupMax channels (14 channels: two groups of 7, the
-//    K and the V band), so every thread of a block evaluates the same
+//    K and the V band; the MP-3000A's 22: three of 8 slots, the last with
+//    two of padding), so every thread of a block evaluates the same
 //    channels and the Clough-cutoff tests stay uniform.  Each group forms
 //    its own line state: that repeats the state (81 of the 186 fp32
 //    instructions of an O2 line at 7 channels) and doubles the warps, which
@@ -528,7 +529,7 @@ TangentsKernel tangents_kernel(int nf) {
 }  // namespace
 
 // alpha, dalpha/dT and dalpha/drho, each (F, N), for the N points of p, t,
-// rho, lwc, all float32 on the device, at the nf <= 16 channels of `freqs`,
+// rho, lwc, all float32 on the device, at the nf <= 32 channels of `freqs`,
 // an array on the HOST; the table carries no O3 lines.  out_dl, when not
 // null, takes dalpha/dLWC (F, N).  Returns the CUDA error of the launch (0
 // when it was accepted).

@@ -40,7 +40,9 @@ H2O_FIELDS = ("fl", "s1", "b2", "w3", "x", "ws", "xs", "w2", "ws2")
 O2_FIELDS = ("f", "s300", "be", "w300", "y0", "y1", "g0", "g1", "dnu0",
              "dnu1")
 O3_FIELDS = ("O3_FL", "O3_S1", "O3_B2", "O3_W3", "O3_X")
-MAX_CHANNELS = 16
+# The most channels one launch of K1 or K4 takes (kMaxChannels in
+# csrc/absorption.cuh).
+MAX_CHANNELS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,7 +224,7 @@ def check_points(arrays: dict, tables, layout: LineTables, ndim=None):
 def _check_inputs(freqs, arrays: dict, tables, layout: LineTables):
     check_points(arrays, tables, layout, ndim=2)
     if not 1 <= len(freqs) <= MAX_CHANNELS:
-        raise ValueError(f"the absorption kernel takes 1..{MAX_CHANNELS} "
+        raise ValueError(f"the absorption kernels take 1..{MAX_CHANNELS} "
                          f"channels, got {len(freqs)}")
 
 
@@ -231,9 +233,10 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
     """(L, B) p [hPa], T [K], rho [g/m^3], LWC [g/m^3] and optional O3
     [ppmv] -> alpha (F, L, B) [Np/km] at the channels `freqs` [GHz].
 
-    K1 or the plain version by `launches(p, use_kernels)`; K1 takes
-    contiguous arrays and `tables`, the packed `line_tables(model, o3 is
-    not None, device)`, built and cached here when not given.
+    K1 or the plain version by `launches(p, use_kernels)`; K1 takes 1 to
+    MAX_CHANNELS channels in one launch (its body is instantiated for each
+    count), contiguous arrays and `tables`, the packed `line_tables(model,
+    o3 is not None, device)`, built and cached here when not given.
     """
     if not launches(p, use_kernels):
         return absorption_lb_reference(freqs, p, t, rho, lwc, model, o3)
@@ -317,7 +320,8 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
     in one pass that carries both tangents; with `with_lwc`, dalpha/dLWC
     [Np/km per g/m^3] (F, L, B) fourth, from the same pass.
 
-    K4 or the plain version by `launches(p, use_kernels)`; K4 takes
+    K4 or the plain version by `launches(p, use_kernels)`; K4 takes 1 to
+    MAX_CHANNELS channels, in the `tangent_groups` of one launch,
     contiguous arrays and `tables`, the packed `line_tables(model, False,
     device)` (K4 has no O3 term), built and cached here when not given.
     """

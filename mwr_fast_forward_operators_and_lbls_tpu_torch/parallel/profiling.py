@@ -824,7 +824,7 @@ def k1_roofline(n_points: int, freqs=_HATPRO, model: str = "R24",
                 with_o3: bool = False, n_h2o_lines=None, n_o2_lines=None,
                 as_coded: bool = False) -> Roofline:
     """K1, `absorption_lb`: alpha (F, n_points) at the channels `freqs`
-    (at most 16).  Reads p, T, rho, LWC (and O3), the table and the
+    (at most 32).  Reads p, T, rho, LWC (and O3), the table and the
     channels; writes alpha."""
     f = np.asarray(freqs, np.float64).reshape(-1)
     ops = (_k1_coded_ops(n_points, f, model, with_o3, n_h2o_lines,

@@ -324,6 +324,29 @@ def test_merged_arithmetic_under_the_cutoff_tests(levels96, freqs):
         assert _share_of_max(got, want) <= 5e-6, model
 
 
+# The Radiometrics MP-3000A's 22 channels, and the kernels' ceiling of 32
+MP3000A = (22.234, 22.5, 23.034, 23.834, 25.0, 26.234, 28.0, 30.0, 51.248,
+           51.76, 52.28, 52.804, 53.336, 53.848, 54.4, 54.94, 55.5, 56.02,
+           56.66, 57.288, 57.964, 58.8)
+CEILING = tuple(np.linspace(22.24, 58.0, k1.MAX_CHANNELS).tolist())
+
+
+@pytest.mark.parametrize("freqs", [MP3000A, CEILING],
+                         ids=["mp3000a", "ceiling"])
+def test_merged_arithmetic_past_sixteen_channels_holds_float64(levels96,
+                                                                freqs):
+    """K1's body at 22 channels and at its ceiling of 32, its cutoff tests
+    over all of them: the function in float64 on the float32 tables is met
+    to 5e-6 of each channel's largest alpha, as at 14 channels, for a
+    release with qSD lines too."""
+    args = [levels96[k] for k in ("p", "t", "rho", "lwc")]
+    for model in ("R24", "R20SD"):
+        got = mirrors.absorption_lb_merged(freqs, *args, model)
+        want = k1.absorption_lb_float64(freqs, *args, model)
+        assert got.shape == (len(freqs), 96, 4)
+        assert _share_of_max(got, want) <= 5e-6, model
+
+
 # ---- K4's arithmetic: channel groups, the tangents by the body's formulas --
 
 LEVEL_ARGS = ("p", "t", "rho", "lwc")
@@ -368,6 +391,21 @@ def test_grouped_tangents_hold_float64(levels96, model):
         assert _share_of_max(g, w) <= 1e-12
 
 
+@pytest.mark.parametrize("freqs", [MP3000A, CEILING],
+                         ids=["mp3000a", "ceiling"])
+def test_grouped_tangents_past_sixteen_channels_hold_float64(levels96, freqs):
+    """K4 at 22 channels (three groups of 8 slots, two of them padding) and
+    at its ceiling of 32 (four full groups), in float32, against the plain
+    function's jvp in float64 on the float32 tables: the bounds of 14
+    channels, 5e-6 (alpha) and 1e-5 (tangents)."""
+    args = [levels96[k] for k in LEVEL_ARGS]
+    got = mirrors.absorption_tangents_grouped(freqs, *args, "R24")
+    want = k1.absorption_tangents_lb_float64(freqs, *args, "R24")
+    for g, w, bound in zip(got, want, (5e-6, 1e-5, 1e-5)):
+        assert g.shape == w.shape == (len(freqs), 96, 4)
+        assert _share_of_max(g, w) <= bound
+
+
 @pytest.mark.parametrize("freqs", [(22.24,), (22.24, 900.0), (183.31, 760.0)],
                          ids=["one", "span_leaves_cutoff", "submm"])
 def test_grouped_tangents_under_the_cutoff_tests(levels96, freqs):
@@ -403,7 +441,8 @@ def test_one_group_and_a_split_give_the_same_sums(levels96, group):
 
 @pytest.mark.parametrize("n_channels,want", [(1, (1, 1)), (8, (1, 8)),
                                              (9, (2, 5)), (14, (2, 7)),
-                                             (16, (2, 8))])
+                                             (16, (2, 8)), (22, (3, 8)),
+                                             (32, (4, 8))])
 def test_tangent_groups_are_at_most_eight_and_even(n_channels, want):
     assert k1.tangent_groups(n_channels) == want
     # the K-matrix shape, 256 profiles x 180 levels at 14 channels: 720

@@ -25,7 +25,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import _build
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.absorption import (
     absorption_lb, absorption_lb_float64, absorption_lb_reference,
-    absorption_tangents_lb, absorption_tangents_lb_reference)
+    absorption_tangents_lb, absorption_tangents_lb_float64,
+    absorption_tangents_lb_reference, tangent_groups)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
     kmatrix_assembled_lb, kmatrix_assembled_lb_reference,
     kmatrix_assembled_rho_lwc_lb, kmatrix_assembled_rho_lwc_lb_reference)
@@ -147,6 +148,45 @@ def test_absorption_kernel_channel_counts(device, n_channels, model, with_o3):
     assert bool((err64 <= 5e-6 * scale).all()), (err64 / scale).max()
 
 
+# The Radiometrics MP-3000A's 22 channels, and the kernels' ceiling of 32
+MP3000A = (22.234, 22.5, 23.034, 23.834, 25.0, 26.234, 28.0, 30.0, 51.248,
+           51.76, 52.28, 52.804, 53.336, 53.848, 54.4, 54.94, 55.5, 56.02,
+           56.66, 57.288, 57.964, 58.8)
+CEILING = tuple(np.linspace(22.24, 58.0, 32).tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_o3", [False, True], ids=["no_o3", "o3"])
+@pytest.mark.parametrize("model", ["R24", "R20SD", "R03"])
+@pytest.mark.parametrize("freqs", [
+    MP3000A, CEILING, tuple(np.linspace(22.24, 58.0, 17).tolist()),
+    tuple(np.linspace(22.24, 58.0, 25).tolist())],
+    ids=["mp3000a", "ceiling", "f17", "f25"])
+def test_absorption_kernel_past_sixteen_channels(device, freqs, model,
+                                                 with_o3):
+    """K1 at 22 channels, at its ceiling of 32 and at the first count of
+    each file of wider bodies, one launch of a body instantiated that wide,
+    on 37 x 67 points, against its plain version
+    (1e-4 of each channel's largest alpha) and against the function in
+    float64 on the float32 tables (5e-6): the bounds of 16 channels and
+    fewer."""
+    prof = _levels(67, 37, device)
+    o3 = lbl._afgl_o3(prof["z"]) if with_o3 else None
+    args = (freqs, prof["p"], prof["t"], prof["rho"], prof["lwc"], model)
+    before = absorption_lb.launches
+    got = absorption_lb(*args, o3=o3)
+    assert absorption_lb.launches == before + 1
+    want = absorption_lb_reference(*args, o3=o3)
+    want64 = absorption_lb_float64(*args, o3=o3)
+    torch.cuda.synchronize()
+    assert got.shape == (len(freqs), 37, 67) and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    scale = want64.abs().amax(dim=(1, 2))
+    assert bool(((got - want).abs().amax(dim=(1, 2)) <= 1e-4 * scale).all())
+    err64 = (got.double() - want64).abs().amax(dim=(1, 2))
+    assert bool((err64 <= 5e-6 * scale).all()), (err64 / scale).max()
+
+
 @pytest.mark.cuda
 def test_absorption_kernel_outside_the_cutoff(device):
     """A channel beyond the 750 GHz cutoff of some lines: every channel then
@@ -198,7 +238,7 @@ def test_forward_bodies_match_plain(device, shape, alpha_is_mid, want_trans,
     elevs = ELEVS[-n_el:]                  # the lowest ones: 4.2 degrees is in
     prof = _levels(batch, n_lev, device)
     freqs = tuple(torch.linspace(22.24, 58.0, nf).tolist())
-    # K6 takes any number of frequencies (K1 at most 16)
+    # K6 takes any number of frequencies (K1 at most 32)
     owned = absorption_spectral(freqs, prof["p"], prof["t"], prof["rho"],
                                 prof["lwc"], "R24")
     if alpha_is_mid:
@@ -285,8 +325,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         absorption_lb(FREQS, args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         absorption_lb(FREQS, args[0][:, :2], *args[1:])
-    with pytest.raises(ValueError):
-        absorption_lb(FREQS + FREQS, *args)
+    with pytest.raises(ValueError, match="1..32 channels"):
+        absorption_lb(FREQS * 3, *args)
     with pytest.raises(ValueError, match="float32 only"):
         lbl.forward_batch(lbl.demo_batch(2, 20, device=device),
                           lbl.LBLConfig(dtype="float64"))
@@ -329,6 +369,75 @@ def test_tangent_kernel_matches_plain(device, model, n_channels):
         err = (g - w).abs().amax(dim=(1, 2))
         scale = w.abs().amax(dim=(1, 2))
         assert bool((err <= bound * scale).all()), (err / scale).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freqs,groups", [(MP3000A, 3), (CEILING, 4)],
+                         ids=["mp3000a", "ceiling"])
+def test_tangent_kernel_past_sixteen_channels(device, freqs, groups):
+    """K4 at 22 channels (three groups of 8 slots on the grid's y axis, two
+    of them padding) and at its ceiling of 32 (four groups of 8): against
+    two jvp passes of the plain absorption (alpha to 1e-4, each tangent to
+    1e-3 of its channel's largest value) and against float64 on its float32
+    tables (5e-6 and 1e-5); dalpha/dLWC against the liquid term in float64
+    (1e-5), the other three outputs those of a launch without it."""
+    prof = _levels(67, 180, device)
+    args = (freqs, prof["p"], prof["t"], prof["rho"], prof["lwc"], "R24")
+    assert tangent_groups(len(freqs))[0] == groups
+    before = absorption_tangents_lb.launches
+    got = absorption_tangents_lb(*args)
+    four = absorption_tangents_lb(*args, with_lwc=True)
+    assert absorption_tangents_lb.launches == before + 2
+    want = absorption_tangents_lb_reference(*args)
+    want64 = absorption_tangents_lb_float64(*args)
+    dl64 = jacobians._dalpha_dlwc(lbl.LBLConfig(freqs_ghz=freqs),
+                                  prof["t"].double())
+    torch.cuda.synchronize()
+    for g, w, w64, bound, bound64 in zip(got, want, want64,
+                                         (1e-4, 1e-3, 1e-3),
+                                         (5e-6, 1e-5, 1e-5)):
+        assert g.shape == (len(freqs), 180, 67) and g.is_contiguous()
+        scale = w64.abs().amax(dim=(1, 2))
+        assert bool(((g - w).abs().amax(dim=(1, 2)) <= bound * scale).all())
+        err64 = (g.double() - w64).abs().amax(dim=(1, 2))
+        assert bool((err64 <= bound64 * scale).all()), (err64 / scale).max()
+    for a, b in zip(got, four):
+        assert torch.equal(a, b)
+    err = (four[3].double() - dl64).abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-5 * dl64.abs().amax(dim=(1, 2))).all())
+
+
+@pytest.mark.cuda
+def test_mp3000a_entry_points_run_every_kernel(device):
+    """At the MP-3000A's 22 channels the LBL forward, the four-release sweep
+    and the K-matrix wrt (t, rho, lwc) run through K1, K2, K4, G and K5,
+    with no plain path; each against the plain path in float64 with the
+    bounds of the 14-channel tests."""
+    profiles = lbl.demo_batch(130, 180, device=device)
+    cfg = lbl.LBLConfig(freqs_ghz=MP3000A)
+    counters = (absorption_lb, forward_lb, absorption_tangents_lb,
+                slant_geometry_lb, kmatrix_assembled_lb,
+                kmatrix_assembled_rho_lwc_lb)
+    before = [c.launches for c in counters]
+    tb = lbl.forward_batch(profiles, cfg)["tb"]
+    sweep = lbl.forward_all_models(profiles, cfg)
+    kmat = jacobians.kmatrix_batch_fast(profiles, cfg,
+                                        wrt=("t", "rho", "lwc"))
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        5, 5, 1, 1, 1, 1]
+    p64 = {k: v.double() for k, v in profiles.items()}
+    cfg64 = dataclasses.replace(cfg, dtype="float64", use_kernels=False)
+    want = lbl.forward_batch(p64, cfg64)["tb"]
+    assert tb.shape == (130, len(ELEVS), 22)
+    assert float((tb.double() - want).abs().max()) <= 1e-2
+    want24 = lbl.forward_batch(p64, dataclasses.replace(cfg64,
+                                                        model="R24"))["tb"]
+    assert float((sweep["R24"].double() - want24).abs().max()) <= 1e-2
+    want_k = jacobians.kmatrix_batch_fast(p64, cfg64,
+                                          wrt=("t", "rho", "lwc"))
+    for name, k in kmat.items():
+        assert k.shape == (130, len(ELEVS), 22, 180)
+        assert k_error(k, want_k[name]) <= 1e-3, name
 
 
 @pytest.mark.cuda
@@ -466,8 +575,8 @@ def test_kmatrix_wrappers_refuse_what_the_kernels_do_not_take(device):
         absorption_tangents_lb(FREQS, args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         absorption_tangents_lb(FREQS, args[0][:, :2], *args[1:])
-    with pytest.raises(ValueError):
-        absorption_tangents_lb(FREQS + FREQS, *args)
+    with pytest.raises(ValueError, match="1..32 channels"):
+        absorption_tangents_lb(FREQS * 3, *args)
     alpha, da, g, t = _k5_inputs(4, device)
     with pytest.raises(ValueError, match="float32 only"):
         kmatrix_assembled_lb(FREQS, "lwc", alpha.double(), da["lwc"],

@@ -162,6 +162,10 @@ def test_pipeline_model_adds_the_dispatch_times():
 
 GRID = np.linspace(20.0, 64.0, 50_000)[:8192]
 P = profiling
+# the Radiometrics MP-3000A's 22 channels
+MP3000A = (22.234, 22.5, 23.034, 23.834, 25.0, 26.234, 28.0, 30.0, 51.248,
+           51.76, 52.28, 52.804, 53.336, 53.848, 54.4, 54.94, 55.5, 56.02,
+           56.66, 57.288, 57.964, 58.8)
 KERNEL_ROOFLINES = {
     "k1": lambda b, **kw: P.k1_roofline(b * 180, **kw),
     "k1_o3": lambda b, **kw: P.k1_roofline(b * 180, with_o3=True, **kw),
@@ -175,6 +179,8 @@ KERNEL_ROOFLINES = {
     "k1_sd": lambda b, **kw: P.k1_roofline(b * 180, model="R20SD", **kw),
     "k1_r98": lambda b, **kw: P.k1_roofline(b * 180, model="R98", **kw),
     "k1_submm": lambda b, **kw: P.k1_roofline(b * 180, (183.31, 900.0), **kw),
+    "k1_mp3000a": lambda b, **kw: P.k1_roofline(b * 180, MP3000A, **kw),
+    "k4_mp3000a": lambda b, **kw: P.k4_roofline(b * 180, MP3000A, **kw),
     "k3": lambda b, **kw: P.k2_roofline(b, 180, 8192, 1, given_paths=True,
                                         **kw),
     "k3_series": lambda b, **kw: P.k2_roofline(
@@ -225,6 +231,15 @@ def test_function_bound_is_not_above_what_the_body_executes(name):
     # multiplies or adds, whichever the body has more of
     assert any(per_call[0] == pytest.approx(most + grid_only.other, abs=tol)
                for most in (grid_only.mul, grid_only.add))
+
+
+def test_k1_past_sixteen_channels_forms_the_line_state_once():
+    """As coded, K1 at 22 channels is one body, which forms the line state
+    once a point as at 14: the state's exponentials do not grow with the
+    channels, and the function needs the same."""
+    coded = P.k1_roofline(1000, MP3000A, as_coded=True)
+    assert coded.exp_ops == P.k1_roofline(1000, as_coded=True).exp_ops
+    assert coded.exp_ops == P.k1_roofline(1000, MP3000A).exp_ops
 
 
 def test_each_quantity_is_charged_on_the_indices_it_depends_on():
