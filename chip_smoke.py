@@ -97,9 +97,13 @@ twenty-six phases, each printing its own lines:
      and the retrieval, with peak device memory, and a `torch.profiler`
      trace of fast serving, of the retrieval and of the K-matrix: device
      time by kernel and the device's idle share; the fast K at B=1024: its
-     kernel against the plain version in float64, row by row, and the
-     times (alone and in a graph) of the kernel, its plain version and the
-     entry point through each, beside the least bytes' bound;
+     kernel, from the profiles, against the plain route in float64, row by
+     row, and the times (alone and in a graph) of the kernel, of the torch
+     prologue it took over (beside it the prologue plus the kernel that
+     took its ten inputs, as measured for that kernel), of the plain
+     version and of the entry point through each, beside the least bytes'
+     bound; then `retrieve_batch` at B=1024, 5 iterations, against the
+     plain route in float64 on the CPU;
  20. the campaign forward stage, `pipeline.forward_stage`: (a) a synthetic
      campaign (3 sondes, one instrument's L1/L2 files) through
      `preprocess_files`, a NetCDF round trip, `distill_on_dataset` and the
@@ -195,6 +199,7 @@ import dataclasses
 import hashlib
 import importlib.util
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -216,6 +221,9 @@ BS, NF_SPEC, CHUNK = 32, 50_000, 8192   # the spectral shape of bench.py
 N_STAGE_TIME = 1000     # the forward-stage shape of bench.py: x 2 crops
 STAGE_MODELS = ("R98", "R17", "R20", "R24")
 N_CAMPAIGN_SONDES = 520  # the JAX tools/campaign_demo.py's archive
+# the fast-K kernel as it was when it took the torch prologue's ten inputs
+# (commit f168307), at B=1024 in a CUDA graph (NVIDIA H100 80GB HBM3, 700 W)
+FK_TEN_INPUTS_GRAPH_MS = 0.3844
 
 
 def check(cond, msg):
@@ -3236,18 +3244,22 @@ def main() -> int:
     # the fast K at the retrieval cell's batch: the kernel alone and the
     # whole entry point, through the kernel and through the plain path,
     # beside the least bytes of the fast K (mwrbench/rooflines/oem.py:
-    # z, p, t, rho, lwc and the weights read, K_t and K_rho written)
+    # z, p, t, rho, lwc and the weights read, K_t and K_rho written); and
+    # the torch prologue (`fast_k_inputs`) the kernel took over, which fed
+    # the kernel its ten inputs before
     kprof = lbl.demo_batch(B, L, device=dev)
     plain_kcfg = dataclasses.replace(kcfg, use_kernels=False)
-    fk_in = jacobians.fast_k_inputs(
-        params, fast.batch_arrays(kprof, torch.float32), kcfg.elevations_deg)
-    fk_in = {k: v.contiguous() for k, v in fk_in.items()}
+    ka = fast.batch_arrays(kprof, torch.float32)
+    fk_in = jacobians.fast_k_inputs(params, ka, kcfg.elevations_deg)
     fk_bytes = 4.0 * (5 * B * L + 72 * nF + 2 * B * nE * nF * L)
     fk_bound = {"published": fk_bytes / profiling.DEFAULT_PEAKS["hbm"] * 1e3,
                 "measured": fk_bytes / peaks["hbm"] * 1e3}
     fastk_adjoint.launches = 0
     fk_rows = {
-        "kernel": (lambda: fastk_adjoint(kcfg.freqs_ghz, **fk_in)),
+        "kernel": (lambda: fastk_adjoint(kcfg.freqs_ghz, kcfg.elevations_deg,
+                                         params["w"], **ka)),
+        "torch prologue": (lambda: jacobians.fast_k_inputs(
+            params, ka, kcfg.elevations_deg)),
         "plain version": (lambda: fastk_adjoint_reference(kcfg.freqs_ghz,
                                                           **fk_in)),
         "entry, kernel": (lambda: jacobians.kmatrix_fast_adjoint_batch(
@@ -3258,8 +3270,10 @@ def main() -> int:
     fk_one = fk_rows["entry, kernel"]()
     check(fastk_adjoint.launches == fk_launches + 1,
           "the fast K did not launch its kernel once")
-    fk_want = fastk_adjoint_reference(
-        kcfg.freqs_ghz, **{k: v.double() for k, v in fk_in.items()})
+    fk_want = fastk_adjoint(kcfg.freqs_ghz, kcfg.elevations_deg,
+                            params["w"].double(),
+                            **{k: v.double() for k, v in ka.items()},
+                            use_kernels=False)
     fk_err = max(float(((fk_one[n].double() - fk_want[n]).abs().amax(-1)
                         / fk_want[n].abs().amax(-1).clamp_min(1e-30)).max())
                  for n in fk_want)
@@ -3267,17 +3281,58 @@ def main() -> int:
           f"row's max|K - plain float64| / its max|K| {fk_err:.3e} (bound "
           f"1e-3)")
     check(fk_err <= 1e-3, f"fast K kernel error {fk_err}")
+    fk_graph = {}
     for what, fn in fk_rows.items():
         ms = timed_ms(fn, repeats=10)
-        g_ms = graph_ms(fn)
+        fk_graph[what] = g_ms = graph_ms(fn)
         print(f"phase 19: fast K {what}, B={B}: {ms:.4f} ms, in a graph "
               f"{g_ms:.4f} ms; bound {fk_bound['published']:.4f} ms by bytes "
               f"({fk_bytes:.4g} B at the published 3.35e12 B/s; "
               f"{fk_bound['measured']:.4f} ms at the measured copy rate): "
               f"share in a graph {fk_bound['published'] / g_ms:.3f}")
+    print(f"phase 19: fast K in a graph: the kernel from the profiles "
+          f"{fk_graph['kernel']:.4f} ms against the torch prologue "
+          f"{fk_graph['torch prologue']:.4f} ms plus the kernel on its ten "
+          f"inputs ({FK_TEN_INPUTS_GRAPH_MS} ms in a graph at commit "
+          f"f168307): "
+          f"{fk_graph['torch prologue'] + FK_TEN_INPUTS_GRAPH_MS:.4f} ms")
     print(f"phase 19: fast K kernel launches in this phase "
           f"{fastk_adjoint.launches}")
     del fk_in, fk_want, fk_one
+
+    # the retrieval at the cell's batch and steps, kernels against the
+    # plain route in float64 on the CPU, on one seed: each profile's widest
+    # gap, its largest and its 99th percentile (nearest rank) over the
+    # profiles, beside the cell's limits for the latter
+    big_obs = fast.fast_forward_batch(params, kprof, kcfg)["tb"]
+    big_t0, big_rho0 = kprof["t"] + 1.5, kprof["rho"] * 0.8
+    big_cfg = retrieval.OEMConfig()
+    big = retrieval.retrieve_batch(params, big_obs, kprof["z"], kprof["p"],
+                                   big_t0, big_rho0, big_cfg, kprof["lwc"])
+    cpu64 = {k: v.detach().cpu().double()
+             for k, v in dict(kprof, t0=big_t0, rho0=big_rho0,
+                              obs=big_obs).items()}
+    t_cpu = time.perf_counter()
+    big64 = retrieval.retrieve_batch(
+        {"w": params["w"].cpu()}, cpu64["obs"], cpu64["z"], cpu64["p"],
+        cpu64["t0"], cpu64["rho0"], big_cfg, cpu64["lwc"])
+    t_cpu = time.perf_counter() - t_cpu
+    floor = big_cfg.rho_floor
+    gaps = {}
+    for name in ("t", "rho", "tb_fit", "dofs"):
+        got, want = big[name].cpu().double(), big64[name]
+        if name == "rho":
+            got, want = torch.log(got + floor), torch.log(want + floor)
+        gap = (got - want).reshape(B, -1).abs().amax(1).sort().values
+        gaps[name] = (float(gap[-1]), float(gap[math.ceil(0.99 * B) - 1]))
+    print(f"phase 19: retrieve_batch B={B} n_iter={big_cfg.n_iter}, kernels "
+          f"against the plain route in float64 on the CPU ({t_cpu:.1f} s): "
+          "largest / 99th-percentile gap " + "; ".join(
+              f"{n} {mx:.4g} / {p99:.4g}" for n, (mx, p99) in gaps.items())
+          + " (limits of p99: t 0.1 K, ln(rho + floor) 0.02, tb_fit 0.1 K)")
+    check(gaps["t"][1] <= 0.1 and gaps["rho"][1] <= 0.02
+          and gaps["tb_fit"][1] <= 0.1, f"retrieval at B={B}: {gaps}")
+    del big, big64, cpu64
 
     # ---- phase 20: the campaign forward stage -----------------------------
     counted = {

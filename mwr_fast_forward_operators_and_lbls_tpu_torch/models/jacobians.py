@@ -27,7 +27,7 @@ The fast operator (`models/fast.py`) has the same structure with layer-mean
 extinction in place of level absorption: `kmatrix_fast_single` and
 `kmatrix_fast_batch` differentiate it with `torch.func.jacrev`;
 `kmatrix_fast_adjoint_batch` (and `..._single`) is its closed form, which the
-retrieval calls once per Gauss-Newton step; its adjoint and assembly are
+retrieval calls once per Gauss-Newton step; from the profiles to K it is
 one kernel (`ops/cuda/fastk.py`).
 """
 
@@ -237,9 +237,10 @@ def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
       3. The refraction geometry's Jacobian is tridiagonal plus a rank-one
          Snell-invariant column (`geometry.slant_path_sensitivities`).
 
-    The geometry and the partials are plain torch.  The adjoint and the
-    assembly are `ops.cuda.fastk.fastk_adjoint`: one launch of its kernel,
-    or its plain version, by `config.use_kernels`.
+    All of it is `ops.cuda.fastk.fastk_adjoint`, from the profiles and the
+    weights: one launch of its kernel, or its plain version
+    (`fast_k_inputs`, then the adjoint and assembly), by
+    `config.use_kernels`.
 
     profiles: dict of (B, L) tensors, in their own dtype and on their own
     device.  Returns {name: (B, E, C, L)} for name in `wrt`, a subset of
@@ -248,17 +249,19 @@ def kmatrix_fast_adjoint_batch(params, profiles: dict, config=None,
     config = config or fast_mod.FastConfig()
     with span("fastk.kmatrix_fast_adjoint_batch"):
         a = fast_mod.batch_arrays(profiles, getattr(torch, config.dtype))
-        k = fast_k_inputs(params, a, config.elevations_deg)
-        return fastk_adjoint(config.freqs_ghz, **k, wrt=wrt,
-                             use_kernels=config.use_kernels)
+        return fastk_adjoint(config.freqs_ghz, config.elevations_deg,
+                             fast_mod._weights(params, a["t"]), **a,
+                             wrt=wrt, use_kernels=config.use_kernels)
 
 
 def fast_k_inputs(params, a: dict, elevations) -> dict:
-    """What the fast K's adjoint and assembly take (`fastk.fastk_adjoint`),
-    from the (B, L) arrays z, p, t, rho, lwc of `a` at the `elevations`
-    [deg], in their dtype: the slant geometry and the refractive-index
-    partials (span fastk.geometry), then the layer-mean extinction and its
-    partials (fastk.partials)."""
+    """What the fast K's plain adjoint and assembly take
+    (`fastk.fastk_adjoint_reference`), from the (B, L) arrays z, p, t, rho,
+    lwc of `a` at the `elevations` [deg], in their dtype: the slant geometry
+    and the refractive-index partials (span fastk.geometry), then the
+    layer-mean extinction and its partials (fastk.partials).  The plain
+    route of `fastk.fastk_adjoint`; its kernel computes the same in its
+    preamble."""
     z, p, t, rho, lwc = (a[k] for k in ("z", "p", "t", "rho", "lwc"))
     elevs = constant_vector(elevations, t.dtype, t.device)
     with span("fastk.geometry"):

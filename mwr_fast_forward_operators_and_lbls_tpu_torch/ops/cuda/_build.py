@@ -64,10 +64,11 @@ SIGNATURES = {
     # cos_el, z, p, t, rho, E, L, B, rv, earth_radius, k1, k2, k3, ds,
     # dds_dnl, dds_dk, dn_t, dn_rho, r0cos, stream
     "mwr_slant_geometry_lb": [_P] * 5 + [_I] * 3 + [_D] * 5 + [_P] * 7,
-    # freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t, t_row, dn_t,
-    # dn_rho, r0cos, B, E, C, L, hk_ghz, t_cosmic, k_t, k_rho, stream
-    "mwr_fastk_adjoint": [_P] * 8 + [_I] + [_P] * 3 + [_I] * 4 + [_F] * 2
-    + [_P] * 3,
+    # freqs, knots, w, w_row, w_col, cos_el, z, p, t, t_row, rho, lwc, B, E,
+    # C, L, hk_ghz, t_cosmic, rv, earth_radius, k1, k2, k3, k_t, k_rho,
+    # stream
+    "mwr_fastk_adjoint": [_P] * 3 + [_I] * 2 + [_P] * 4 + [_I] + [_P] * 2
+    + [_I] * 4 + [_F] * 2 + [_D] * 5 + [_P] * 3,
 }
 
 

@@ -654,6 +654,113 @@ def _warp_sum(v):
     return v[..., 0]
 
 
+def _horner(c, th):
+    """sum_n c[n] th^n and sum_n n c[n] th^(n-1) by Horner's rule, as the
+    fast-K kernel's `poly` forms them; c is a list of N >= 2 terms."""
+    n_terms = len(c)
+    v, dv = c[-1], (n_terms - 1) * c[-1]
+    for n in range(n_terms - 2, 0, -1):
+        v, dv = v * th + c[n], dv * th + n * c[n]
+    return v * th + c[0], dv
+
+
+def fastk_preamble(w, z, p, t, rho, lwc, elevations):
+    """The fast-K kernel's preamble and chords (`csrc/fastk.cu`) in plain
+    torch: what `jacobians.fast_k_inputs` gives, in its keys and shapes,
+    from the (B, L) profiles, the weights w (72, C) and the elevations
+    [deg], in the profiles' dtype, in the kernel's order of operations.
+
+    1. Levels: e = rho T Rv / 1e5, the refractivity, n = 1 + 1e-6 N in
+       float64, dn_t and dn_rho through e.
+    2. Layers: in float64, the scaled layer means; of the four hats of
+       log p (in the profiles' dtype) the two around it, i0 = [lp > k1] +
+       [lp > k2] and i0 + 1, the others being zero; for each of the two
+       hats the weights of each group of monomials (p^2, r p, r^2, w times
+       powers of theta, p theta^3) as a polynomial in theta and its
+       derivative by Horner's rule, the groups combined and scaled by the
+       hat; dtheta/dT and dr/drho applied last; then the clamp at zero,
+       and one rounding to the profiles' dtype.  The kernel fuses each
+       product and sum into an FMA.
+    3. Chords, per (profile, elevation): the Snell invariant n_0 r_0
+       cos(el), r_k = k / n_layer as k times 1 / n_layer, r -+ r_k and their
+       product in float64, the rest in the profiles' dtype.
+    """
+    from ...models import fast
+
+    dtype = t.dtype
+    f64 = torch.float64
+    w = w.to(dtype)
+    # 1. levels
+    e = rho * t * phys.RV / 1e5
+    n = 1.0 + 1e-6 * geometry.refractivity(p, t, e).to(f64)
+    inv_t = 1.0 / t
+    dn_de = 1e-6 * ((geometry._K2 - geometry._K1) + geometry._K3 * inv_t) \
+        * inv_t
+    dn_dt = -1e-6 * (geometry._K1 * (p - e) + geometry._K2 * e
+                     + 2.0 * geometry._K3 * e * inv_t) * inv_t * inv_t
+    dn_t = dn_dt + dn_de * (rho * phys.RV / 1e5)
+    dn_rho = dn_de * (t * phys.RV / 1e5)
+
+    # 2. layers
+    def mid(a):
+        return 0.5 * (a[:, :-1].to(f64) + a[:, 1:].to(f64))
+
+    pm = mid(p)
+    ps, th, r, wl = pm * 1e-3, 300.0 / mid(t), mid(rho) * 0.1, mid(lwc)
+    pm_h = pm.to(dtype)
+    hats = fast._hats(pm_h)                                  # (4, B, K)
+    lp = torch.log(torch.clamp_min(pm_h, 1e-3))
+    knots = torch.as_tensor(fast._LOGP_KNOTS, dtype=dtype)
+    i0 = (lp > knots[1]).long() + (lp > knots[2]).long()     # (B, K)
+    acc = [0.0] * 3
+    for q in range(2):
+        hb = i0 + q
+        h = torch.gather(hats, 0, hb[None])[0][..., None].to(f64)
+        wq = [w[hb * 18 + j].to(f64) for j in range(18)]     # (B, K, C)
+        thc = th[..., None]
+        o2, d_o2 = _horner(wq[0:6], thc)
+        h2o, d_h2o = _horner(wq[6:11], thc)
+        slf, d_slf = _horner(wq[11:14], thc)
+        liq, d_liq = _horner(wq[14:17], thc)
+        dry = wq[17] * thc * thc
+        psc, rc, lc = ps[..., None], r[..., None], wl[..., None]
+        sums = (psc * psc * o2 + rc * psc * h2o + rc * rc * slf + lc * liq
+                + psc * dry * thc,
+                psc * psc * d_o2 + rc * psc * d_h2o + rc * rc * d_slf
+                + lc * d_liq + 3.0 * psc * dry,
+                psc * h2o + 2.0 * rc * slf)
+        acc = [a + h * s_q for a, s_q in zip(acc, sums)]
+    live = acc[0] > 0.0
+    alpha_mid = torch.clamp_min(acc[0], 0.0).to(dtype)
+    d_tm = torch.where(live, acc[1] * (-(th * th) / 300.0)[..., None],
+                       0.0).to(dtype)
+    d_rm = torch.where(live, acc[2] * 0.1, 0.0).to(dtype)
+
+    # 3. chords
+    cos_el = torch.cos(torch.deg2rad(torch.as_tensor(elevations, dtype=f64)))
+    r_lev = phys.EARTH_RADIUS + z.to(f64)                    # (B, L)
+    r0 = r_lev[:, :1]
+    snell = n[:, :1] * r0 * cos_el                           # (B, E)
+    inv_nl = 1.0 / (0.5 * (n[:, :-1] + n[:, 1:]))            # (B, K)
+    rk = snell[:, :, None] * inv_nl[:, None]                 # (B, E, K)
+    r_bot, r_top = r_lev[:, None, :-1], r_lev[:, None, 1:]
+    seg_top, seg_bot = (torch.sqrt(torch.clamp_min(
+        ((rr - rk) * (rr + rk)).to(dtype), 0.0)) for rr in (r_top, r_bot))
+    span = (z[:, 1:] - z[:, :-1])[:, None] * (r_top + r_bot).to(dtype)
+    denom = seg_top + seg_bot
+    denom_c = torch.clamp_min(denom, 1.0)
+    ds = span / denom_c * 1e-3
+    inv_top, inv_bot = (torch.where(s > 0.0, 1.0 / torch.clamp_min(s, 1e-30),
+                                    0.0) for s in (seg_top, seg_bot))
+    rkf, inl = rk.to(dtype), inv_nl.to(dtype)[:, None]
+    dds_drk = torch.where(denom > 1.0, span / (denom_c * denom_c) * rkf
+                          * (inv_top + inv_bot), 0.0)
+    return dict(alpha_mid=alpha_mid, d_tm=d_tm, d_rm=d_rm, ds=ds,
+                dds_dnl=dds_drk * (-rkf * inl) * 1e-3,
+                dds_dk=dds_drk * inl * 1e-3, t=t, dn_t=dn_t, dn_rho=dn_rho,
+                r0cos=(r0 * cos_el).to(dtype))
+
+
 def fastk_warp_walk(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
                     dn_t, dn_rho, r0cos, wrt=("t", "rho")):
     """The fast-K kernel's walk (`csrc/fastk.cu`) in plain torch, for every

@@ -1,27 +1,34 @@
-"""The fast operator's closed-form K (`csrc/fastk.cu`): the RTE adjoint and
-its assembly into K_t and K_rho, its wrapper and its plain version.
+"""The fast operator's closed-form K (`csrc/fastk.cu`): from the profiles
+and the regression's weights, the layer-mean extinction and its partials,
+the slant geometry, the RTE adjoint and its assembly into K_t and K_rho; its
+wrapper and its plain version.
 
-`fastk_adjoint` takes what the torch prologue of
-`jacobians.kmatrix_fast_adjoint_batch` makes (the layer-mean extinction and
-its partials, the chords and their sensitivities, the profiles'
-temperatures and refractive-index partials) and returns {name: K (B, E, C,
-L)} for each name of `wrt` in {"t", "rho"}.  It launches the kernel, one
-launch in place of the plain version's 179 operations, 94 of which write a
-full (B, E, C, L-1) tensor or larger, or runs the plain version by the
-package's rule (`ops.cuda.launches`).
+`fastk_adjoint` takes the (B, L) profiles z, p, t, rho, lwc, the weights w
+(72, C), the channels and the elevations, and returns {name: K (B, E, C, L)}
+for each name of `wrt` in {"t", "rho"}.  By the package's rule
+(`ops.cuda.launches`) it launches the kernel, one launch in place of the
+plain version's prologue of some 180 operations
+(`models/jacobians.py::fast_k_inputs`) and adjoint of 179, 94 of which
+write a full (B, E, C, L-1) tensor or larger, or runs that plain version.
 """
 
+import functools
+
+import numpy as np
 import torch
 
 from ...constants import physics as phys
-from .. import rte
+from .. import geometry, rte
 from ..spans import span
 from ..tensors import constant_vector
 from . import _build, launches
+from .rte import _device_cos
 
 FASTK_WRT = ("t", "rho")
 # the kernel runs one warp an elevation in a block of at most 1024 threads
 MAX_ELEVATIONS = 32
+# the regression's features: 18 monomials times 4 hats of log p
+N_FEATURES = 72
 
 
 def _spread(a):
@@ -58,92 +65,90 @@ def fastk_adjoint_reference(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl,
         return out
 
 
-def _check_inputs(freqs, arrays: dict, wrt):
-    t = arrays["t"]
+@functools.lru_cache(maxsize=8)
+def _knots(device) -> torch.Tensor:
+    """The hats' knots of log p, their lower and their upper neighbours
+    (`models/fast.py::_knots`), 12 float32 values on `device`."""
+    from ...models import fast
+    k = np.asarray(fast._LOGP_KNOTS)
+    lo = np.concatenate([[k[0] - 100.0], k[:-1]])
+    hi = np.concatenate([k[1:], [k[-1] + 100.0]])
+    return constant_vector(np.concatenate([k, lo, hi]), torch.float32,
+                           device)
+
+
+def _check_inputs(freqs, elevations, w, profiles: dict, wrt):
+    t = profiles["t"]
     if not set(wrt) <= set(FASTK_WRT) or not wrt:
         raise ValueError(f"wrt must name some of {FASTK_WRT}, got {wrt}")
-    for name, a in arrays.items():
-        if a.device != t.device or a.dtype != t.dtype:
-            raise ValueError(f"{name} must be {t.dtype} on {t.device}")
-        if not a.is_contiguous() and not (name == "t" and a.stride(1) == 1):
-            raise ValueError(f"{name} must be contiguous (t along L only)")
     if t.ndim != 2 or t.shape[1] < 2:
         raise ValueError(f"t: expected (B, L) with L >= 2, got "
                          f"{tuple(t.shape)}")
-    batch, lev = t.shape
-    n_el, n_ch = arrays["r0cos"].shape[-1], len(freqs)
-    if not 1 <= n_el <= MAX_ELEVATIONS:
-        raise ValueError(f"the fast-K kernel takes 1 to {MAX_ELEVATIONS} "
-                         f"elevations, got {n_el}")
-    layers, chords, levels = ((batch, lev - 1, n_ch), (batch, n_el, lev - 1),
-                              (batch, lev))
-    want = {"alpha_mid": layers, "d_tm": layers, "d_rm": layers,
-            "ds": chords, "dds_dnl": chords, "dds_dk": chords, "t": levels,
-            "dn_t": levels, "dn_rho": levels, "r0cos": (batch, n_el)}
-    for name, a in arrays.items():
-        if tuple(a.shape) != want[name]:
-            raise ValueError(f"{name}: expected {want[name]}, got "
+    for name, a in profiles.items():
+        if a.device != t.device or a.dtype != t.dtype:
+            raise ValueError(f"{name} must be {t.dtype} on {t.device}")
+        if a.shape != t.shape:
+            raise ValueError(f"{name}: expected {tuple(t.shape)}, got "
                              f"{tuple(a.shape)}")
-    if batch * n_ch >= 2 ** 31:
-        raise ValueError(f"B * C = {batch * n_ch} out of range")
+        if not a.is_contiguous() and not (name == "t" and a.stride(1) == 1):
+            raise ValueError(f"{name} must be contiguous (t along L only)")
+    n_ch = len(freqs)
+    if (tuple(w.shape) != (N_FEATURES, n_ch) or w.dtype != torch.float32
+            or w.device != t.device):
+        raise ValueError(f"w: expected float32 ({N_FEATURES}, {n_ch}) on "
+                         f"{t.device}, got {w.dtype} {tuple(w.shape)} on "
+                         f"{w.device}")
+    if not 1 <= len(elevations) <= MAX_ELEVATIONS:
+        raise ValueError(f"the fast-K kernel takes 1 to {MAX_ELEVATIONS} "
+                         f"elevations, got {len(elevations)}")
+    if t.shape[0] * n_ch >= 2 ** 31:
+        raise ValueError(f"B * C = {t.shape[0] * n_ch} out of range")
 
 
-def fastk_adjoint(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
-                  dn_t, dn_rho, r0cos, wrt=FASTK_WRT,
+def fastk_adjoint(freqs, elevations, w, z, p, t, rho, lwc, wrt=FASTK_WRT,
                   use_kernels: bool = True):
     """K_t and K_rho of the fast operator, {name: (B, E, C, L)} for each
     name of `wrt` (in {"t", "rho"}).
 
-    freqs: C channel frequencies [GHz].  alpha_mid (B, L-1, C) layer-mean
-    extinction [Np/km], d_tm and d_rm (B, L-1, C) its partials in the
-    layer-mean temperature and vapor density; ds, dds_dnl, dds_dk (B, E,
-    L-1) the chords [km] and their sensitivities to the layer's refractive
-    index and to the Snell invariant; t (B, L) [K]; dn_t, dn_rho (B, L)
-    d(refractive index)/d(t, rho); r0cos (B, E) = (R_E + z_0) cos(el).  A
-    partial that `wrt` does not need (d_tm, dn_t for t; d_rm, dn_rho for
-    rho) may be None.
+    freqs: C channel frequencies [GHz]; elevations: E scan elevations
+    [deg]; w (72, C) the regression's weights; z [m], p [hPa], t [K], rho
+    [g/m^3], lwc [g/m^3] the (B, L) profiles.
 
     The kernel or the plain version by `launches(t, use_kernels)`.  The
-    kernel takes contiguous arrays (t along L only); the chords are made so
-    here.
+    plain version is `jacobians.fast_k_inputs` then
+    `fastk_adjoint_reference`, in the profiles' dtype.  The kernel takes
+    float32 profiles on the card, contiguous (t along L only, so t may be a
+    slice of a wider state), and float32 weights there, in any strides
+    (`fast.fit_closed_form` returns them column-major).
     """
+    profiles = dict(z=z, p=p, t=t, rho=rho, lwc=lwc)
     if not launches(t, use_kernels):
-        return fastk_adjoint_reference(freqs, alpha_mid, d_tm, d_rm, ds,
-                                       dds_dnl, dds_dk, t, dn_t, dn_rho,
-                                       r0cos, wrt)
-    if not ds.shape == dds_dnl.shape == dds_dk.shape:
-        raise ValueError(f"ds, dds_dnl, dds_dk: expected one shape, got "
-                         f"{[tuple(a.shape) for a in (ds, dds_dnl, dds_dk)]}")
-    # contiguous (B, E, K), as the kernel reads the chords along K
-    ds, dds_dnl, dds_dk = torch.stack((ds, dds_dnl, dds_dk)).unbind(0)
+        from ...models.jacobians import fast_k_inputs
+        k = fast_k_inputs({"w": w}, profiles, elevations)
+        return fastk_adjoint_reference(freqs, **k, wrt=wrt)
     with span("cuda.fastk_adjoint"):
-        arrays = dict(alpha_mid=alpha_mid, ds=ds, dds_dnl=dds_dnl,
-                      dds_dk=dds_dk, t=t, r0cos=r0cos)
-        if "t" in wrt:
-            arrays.update(d_tm=d_tm, dn_t=dn_t)
-        if "rho" in wrt:
-            arrays.update(d_rm=d_rm, dn_rho=dn_rho)
-        _check_inputs(freqs, arrays, wrt)
+        _check_inputs(freqs, elevations, w, profiles, wrt)
         dev = t.device
         batch, lev = t.shape
-        n_el, n_ch = r0cos.shape[1], len(freqs)
+        n_el, n_ch = len(elevations), len(freqs)
         out = {name: torch.empty((batch, n_el, n_ch, lev),
                                  dtype=torch.float32, device=dev)
                for name in FASTK_WRT if name in wrt}
         f = constant_vector(freqs, torch.float32, dev)
+        cos_el = _device_cos(tuple(float(v) for v in elevations), dev)
 
-        def ptr(a):
-            return None if a is None else a.data_ptr()
+        def ptr(name):
+            return out[name].data_ptr() if name in out else None
 
         with torch.cuda.device(dev):
             err = _build.library().mwr_fastk_adjoint(
-                f.data_ptr(), alpha_mid.data_ptr(), ptr(arrays.get("d_tm")),
-                ptr(arrays.get("d_rm")), ds.data_ptr(), dds_dnl.data_ptr(),
-                dds_dk.data_ptr(), t.data_ptr(),
-                t.stride(0) if batch > 1 else lev,
-                ptr(arrays.get("dn_t")), ptr(arrays.get("dn_rho")),
-                r0cos.data_ptr(), batch, n_el, n_ch, lev, phys.HK_GHZ,
-                phys.T_COSMIC, ptr(out.get("t")), ptr(out.get("rho")),
+                f.data_ptr(), _knots(dev).data_ptr(), w.data_ptr(),
+                w.stride(0), w.stride(1), cos_el.data_ptr(), z.data_ptr(),
+                p.data_ptr(), t.data_ptr(),
+                t.stride(0) if batch > 1 else lev, rho.data_ptr(),
+                lwc.data_ptr(), batch, n_el, n_ch, lev, phys.HK_GHZ,
+                phys.T_COSMIC, phys.RV, phys.EARTH_RADIUS, geometry._K1,
+                geometry._K2, geometry._K3, ptr("t"), ptr("rho"),
                 torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"fast-K kernel launch failed: CUDA error "

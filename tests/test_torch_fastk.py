@@ -1,6 +1,7 @@
 """The fast operator's closed-form K on the CPU: the plain version of the
-fast-K kernel (`ops/cuda/fastk.py`) against the kernel's walk in plain torch
-(`_mirrors.fastk_warp_walk`), its routing in
+fast-K kernel (`ops/cuda/fastk.py`) against the kernel's preamble and walk
+in plain torch (`_mirrors.fastk_preamble`, `_mirrors.fastk_warp_walk`), the
+wrapper's plain route and its routing in
 `jacobians.kmatrix_fast_adjoint_batch`, and the kernel's symbol.  The
 kernel itself runs in the `cuda` tests of `test_torch_kernels.py`."""
 
@@ -35,11 +36,15 @@ def _weights(n_levels):
     return w + fast.init_params(cfg, scale=1e-3, seed=5, device="cpu")["w"]
 
 
+def _profiles(batch, n_levels, dtype=torch.float64):
+    """(B, L) demo profiles z, p, t, rho, lwc in `dtype`."""
+    return fast.batch_arrays(lbl.demo_batch(batch, n_levels, seed=7,
+                                            device="cpu"), dtype)
+
+
 def _inputs(batch, n_levels, dtype=torch.float64):
-    profiles = lbl.demo_batch(batch, n_levels, seed=7, device="cpu")
     return jacobians.fast_k_inputs({"w": _weights(n_levels).double()},
-                                   fast.batch_arrays(profiles,
-                                                     torch.float64), ELEVS)
+                                   _profiles(batch, n_levels, dtype), ELEVS)
 
 
 def _row_error(got, want):
@@ -121,12 +126,102 @@ def test_cpu_profiles_never_reach_the_wrapper(monkeypatch):
 
 
 def test_the_wrapper_takes_the_plain_version_on_the_cpu():
-    k = {n: v.float() for n, v in _inputs(2, 20).items()}
+    prof = _profiles(2, 20, torch.float32)
+    w = _weights(20)
     before = fastk.fastk_adjoint.launches
-    got = fastk.fastk_adjoint(CFG.freqs_ghz, **k, wrt=("rho",))
+    got = fastk.fastk_adjoint(CFG.freqs_ghz, ELEVS, w, **prof, wrt=("rho",))
     assert fastk.fastk_adjoint.launches == before
-    want = fastk.fastk_adjoint_reference(CFG.freqs_ghz, **k, wrt=("rho",))
+    want = fastk.fastk_adjoint_reference(
+        CFG.freqs_ghz, **jacobians.fast_k_inputs({"w": w}, prof, ELEVS),
+        wrt=("rho",))
     assert set(got) == {"rho"} and torch.equal(got["rho"], want["rho"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=str)
+def test_the_plain_route_is_the_prologue_then_the_plain_version(dtype):
+    """The wrapper's plain route, and the entry point through it, give
+    `fastk_adjoint_reference(**fast_k_inputs(...))` to the bit, in float32
+    and in float64, t a strided slice of a wider state as the retrieval
+    passes it."""
+    prof = _profiles(3, 33, dtype)
+    prof["t"] = torch.cat([prof["t"], prof["t"]], dim=1)[:, :33]
+    w = _weights(33).to(dtype)
+    want = fastk.fastk_adjoint_reference(
+        CFG.freqs_ghz, **jacobians.fast_k_inputs({"w": w}, prof, ELEVS))
+    got = fastk.fastk_adjoint(CFG.freqs_ghz, ELEVS, w, **prof)
+    entry = jacobians.kmatrix_fast_adjoint_batch(
+        {"w": _weights(33)}, prof,
+        fast.FastConfig(elevations_deg=ELEVS, outputs=("tb",),
+                        dtype=str(dtype).removeprefix("torch.")))
+    for name in fastk.FASTK_WRT:
+        assert got[name].dtype == dtype
+        assert torch.equal(got[name], want[name]), name
+        assert torch.equal(entry[name], want[name]), name
+
+
+def _field_error(got, want):
+    """max |got - want| over the field's largest |want|."""
+    return float((got.double() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("n_levels", [2, 33, 60, 180])
+def test_preamble_mirror_matches_the_prologue(n_levels):
+    """The kernel's preamble and chords in plain torch against the plain
+    prologue: in float64 to rtol 1e-12 (and 1e-12 of each field's largest
+    value where a field's sum cancels to near zero); in float32, on the
+    same values, within 1e-5 of each field's largest value of the prologue
+    in float64.  The weights drive the regression below zero in some
+    layers, and log p crosses the hats' knots."""
+    w = _weights(n_levels)
+    prof = _profiles(5, n_levels)
+    want = jacobians.fast_k_inputs({"w": w.double()}, prof, ELEVS)
+    got = _mirrors.fastk_preamble(w.double(), **prof, elevations=ELEVS)
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].dtype == torch.float64
+        torch.testing.assert_close(
+            got[name], want[name], rtol=1e-12,
+            atol=1e-12 * float(want[name].abs().max()))
+    prof32 = {k: v.float() for k, v in prof.items()}
+    want = jacobians.fast_k_inputs(
+        {"w": w.double()}, {k: v.double() for k, v in prof32.items()}, ELEVS)
+    got = _mirrors.fastk_preamble(w, **prof32, elevations=ELEVS)
+    for name in want:
+        assert got[name].dtype == torch.float32
+        assert got[name].shape == want[name].shape
+        assert _field_error(got[name], want[name]) <= 1e-5, name
+    if n_levels >= 60:
+        assert bool((want["alpha_mid"] == 0).any())
+
+
+@pytest.mark.parametrize("n_levels", [60, 180])
+def test_kernel_mirror_in_float32_meets_the_card_tests_bound(n_levels):
+    """The kernel's arithmetic from the float32 profiles to K (preamble,
+    chords and walk) against the wrapper's plain route in float64 on the
+    same values: each row within 1e-3 of the row's largest |K|, the card
+    test's bound (the plain route in float32 misses it for K_rho)."""
+    w = _weights(n_levels)
+    prof = _profiles(9, n_levels, torch.float32)
+    got = _mirrors.fastk_warp_walk(CFG.freqs_ghz, **_mirrors.fastk_preamble(
+        w, **prof, elevations=ELEVS))
+    want = fastk.fastk_adjoint(CFG.freqs_ghz, ELEVS, w.double(),
+                               **{k: v.double() for k, v in prof.items()})
+    plain = fastk.fastk_adjoint(CFG.freqs_ghz, ELEVS, w, **prof)
+    for name in fastk.FASTK_WRT:
+        assert got[name].dtype == torch.float32
+        assert _row_error(got[name], want[name]) <= 1e-3, name
+    assert _row_error(plain["rho"], want["rho"]) > 1e-3
+
+
+def test_the_kernel_takes_the_hats_knots_of_the_fast_operator():
+    """The wrapper hands the kernel the knots of `fast._hats`, their lower
+    and upper neighbours, as the plain version rounds them."""
+    like = torch.zeros(1)
+    k, lo, hi = (v.reshape(-1) for v in fast._knots(like))
+    assert torch.equal(fastk._knots(torch.device("cpu")),
+                       torch.cat([k, lo, hi]))
 
 
 def test_the_kernel_symbol_feeds_no_other_roofline():

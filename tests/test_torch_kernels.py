@@ -19,7 +19,8 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (fast,
                                                                   lbl,
                                                                   retrieval,
                                                                   spectral)
-from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import geometry, thermo
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (geometry, spans,
+                                                               thermo)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.absorption import (
     n2_absorption)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import _build
@@ -33,7 +34,7 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.adjoint import (
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.chain import (
     OPS as CHAIN_OPS, chain, chain_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.fastk import (
-    fastk_adjoint, fastk_adjoint_reference)
+    fastk_adjoint)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.geometry import (
     slant_geometry_lb, slant_geometry_lb_reference)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
@@ -1132,19 +1133,24 @@ def test_retrieval_on_the_card_runs_the_rte_kernel_each_step(device):
 
 
 def _fastk_inputs(batch, n_levels, device):
-    """The fast K's kernel inputs on the card: weights fitted on 64
-    profiles plus a random part that drives the regression below zero in
-    some layers (the clamp of `fast.extinction_partials` zeroes them and
-    their partials), the prologue in float64, then rounded to float32."""
+    """The fast K's inputs on the card: weights fitted on 64 profiles plus
+    a random part that drives the regression below zero in some layers (the
+    clamp of `fast.extinction_partials` zeroes them and their partials), and
+    float32 (B, L) profiles."""
     cfg = fast.FastConfig(outputs=("tb",))
     w = fast.fit_closed_form(lbl.demo_batch(64, n_levels, device=device),
                              cfg)["w"]
     w = w + fast.init_params(cfg, scale=1e-3, seed=5, device=device)["w"]
-    profiles = lbl.demo_batch(batch, n_levels, seed=7, device=device)
-    k = jacobians.fast_k_inputs({"w": w.double()},
-                                fast.batch_arrays(profiles, torch.float64),
-                                cfg.elevations_deg)
-    return cfg, {n: v.float().contiguous() for n, v in k.items()}
+    profiles = fast.batch_arrays(
+        lbl.demo_batch(batch, n_levels, seed=7, device=device), torch.float32)
+    return cfg, w.float().contiguous(), profiles
+
+
+def _fastk_plain64(cfg, w, profiles, wrt=("t", "rho")):
+    """The wrapper's plain route in float64 on the same values."""
+    return fastk_adjoint(cfg.freqs_ghz, cfg.elevations_deg, w.double(),
+                         **{k: v.double() for k, v in profiles.items()},
+                         wrt=wrt, use_kernels=False)
 
 
 @pytest.mark.cuda
@@ -1153,23 +1159,27 @@ def _fastk_inputs(batch, n_levels, device):
 @pytest.mark.parametrize("n_levels", [180, 60])
 @pytest.mark.parametrize("batch", [1, 37, 256])
 def test_fastk_kernel_matches_plain_float64(device, batch, n_levels, wrt):
-    """The fast-K kernel against its plain version run in float64 on the
-    same float32 inputs (in float32 the plain S_k = atm - cumsum cancels
-    near the column top): each (profile, elevation, channel) row to 1e-3
-    of the row's largest |K|, the K-matrix cell's `k_*_rel`, a rounding of
-    the inputs far below the retrieval's noise.  B=37 leaves a block of a
-    profile whose neighbours differ; L=60 a part-empty top chunk of
-    layers; the inputs reach the emission series (opacity < 0.5), the
+    """The fast-K kernel, from the float32 profiles and weights, against
+    the wrapper's plain route (the prologue, then the plain version) run in
+    float64 on the same values (in float32 the plain S_k = atm - cumsum
+    cancels near the column top): each (profile, elevation, channel) row
+    to 1e-3 of the row's largest |K|, the K-matrix cell's `k_*_rel`, a
+    rounding of the inputs far below the retrieval's noise.  B=37 leaves a
+    block of a profile whose neighbours differ; L=60 a part-empty top chunk
+    of layers; the inputs reach the emission series (opacity < 0.5), the
     closed form above it, and layers the clamp zeroes."""
-    cfg, k = _fastk_inputs(batch, n_levels, device)
+    cfg, w, prof = _fastk_inputs(batch, n_levels, device)
+    k = jacobians.fast_k_inputs(
+        {"w": w.double()}, {n: v.double() for n, v in prof.items()},
+        cfg.elevations_deg)
     dtau = k["alpha_mid"].transpose(1, 2)[:, None] * k["ds"][:, :, None]
     assert bool((dtau < 0.03).any()) and bool((dtau > 0.5).any())
     assert bool((k["alpha_mid"] == 0).any())
     before = fastk_adjoint.launches
-    got = fastk_adjoint(cfg.freqs_ghz, **k, wrt=wrt)
+    got = fastk_adjoint(cfg.freqs_ghz, cfg.elevations_deg, w, **prof,
+                        wrt=wrt)
     assert fastk_adjoint.launches == before + 1
-    want = fastk_adjoint_reference(
-        cfg.freqs_ghz, **{n: v.double() for n, v in k.items()}, wrt=wrt)
+    want = _fastk_plain64(cfg, w, prof, wrt)
     torch.cuda.synchronize()
     assert set(got) == set(wrt)
     for name in wrt:
@@ -1186,9 +1196,9 @@ def test_fastk_kernel_matches_plain_float64(device, batch, n_levels, wrt):
 def test_fast_k_path_launches_the_kernel_once(device):
     """`kmatrix_fast_adjoint_batch` on CUDA float32 profiles launches the
     kernel once, with no fallback, and agrees with the plain path in
-    float64 within the retrieval test's 2e-3 of max |K| (the float32
-    geometry of the prologue is in both); use_kernels=False takes the plain
-    path on the card, and float64 profiles with use_kernels raise."""
+    float64 within the retrieval test's 2e-3 of max |K|; use_kernels=False
+    takes the plain path on the card, and float64 profiles with use_kernels
+    raise."""
     profiles = lbl.demo_batch(33, 180, device=device)
     cfg = fast.FastConfig(outputs=("tb",))
     params = fast.fit_closed_form(profiles, cfg)
@@ -1210,30 +1220,62 @@ def test_fast_k_path_launches_the_kernel_once(device):
 
 
 @pytest.mark.cuda
+def test_fast_k_entry_point_is_one_device_operation(device):
+    """Counted by the profiler, not by the wrapper's counter: a call of
+    `kmatrix_fast_adjoint_batch` on float32 profiles on the card, t a
+    strided slice as the retrieval passes it, runs one device operation,
+    the fast-K kernel, and no copy, fill or elementwise kernel, for
+    weights in the column-major strides `fast.fit_closed_form` gives."""
+    cfg, w, prof = _fastk_inputs(64, 180, device)
+    prof["t"] = torch.cat([prof["t"], prof["t"]], dim=1)[:, :180]
+    params = {"w": w.T.contiguous().T}
+
+    def call():
+        return jacobians.kmatrix_fast_adjoint_batch(params, prof, cfg)
+
+    call()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof_run:
+        call()
+        torch.cuda.synchronize()
+    # the device's operations, the spans' ranges on its timeline left out
+    ops = [(e.key, e.count) for e in prof_run.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.key not in spans.SPAN_NAMES]
+    assert len(ops) == 1 and ops[0][1] == 1, ops
+    assert "fastk_adjoint_kernel" in ops[0][0], ops
+
+
+@pytest.mark.cuda
 def test_fastk_wrapper_refuses_what_the_kernel_does_not_take(device):
-    cfg, k = _fastk_inputs(4, 20, device)
+    cfg, w, prof = _fastk_inputs(4, 20, device)
+    freqs, elevs = cfg.freqs_ghz, cfg.elevations_deg
+    whole = fastk_adjoint(freqs, elevs, w, **prof)
+    # the weights: (72, C), float32, on the card, in any strides
+    for bad in (w[:71], w[:, :13], w.double(), w.cpu()):
+        with pytest.raises(ValueError, match="w: expected"):
+            fastk_adjoint(freqs, elevs, bad, **prof)
+    for name, v in fastk_adjoint(freqs, elevs, w.T.contiguous().T,
+                                 **prof).items():
+        assert torch.equal(v, whole[name]), name
     with pytest.raises(ValueError):
-        fastk_adjoint(cfg.freqs_ghz, **dict(k, alpha_mid=k["alpha_mid"]
-                                            .double()))
+        fastk_adjoint(freqs, elevs, w, **dict(prof, z=prof["z"].double()))
     with pytest.raises(ValueError):
-        fastk_adjoint(cfg.freqs_ghz, **dict(k, ds=k["ds"][:, :, 1:]))
+        fastk_adjoint(freqs, elevs, w, **dict(prof, p=prof["p"][:, 1:]))
     with pytest.raises(ValueError):
-        fastk_adjoint(cfg.freqs_ghz, **dict(k, alpha_mid=k["alpha_mid"]
-                                            .transpose(1, 2).contiguous()
-                                            .transpose(1, 2)))
-    # the wrapper lays the chords out as the kernel reads them
-    strided = fastk_adjoint(cfg.freqs_ghz, **dict(
-        k, ds=k["ds"].transpose(1, 2).contiguous().transpose(1, 2)))
-    for name, v in fastk_adjoint(cfg.freqs_ghz, **k).items():
-        assert torch.equal(strided[name], v), name
+        fastk_adjoint(freqs, elevs, w, **dict(
+            prof, rho=prof["rho"].T.contiguous().T))
     with pytest.raises(ValueError):
-        fastk_adjoint(cfg.freqs_ghz + cfg.freqs_ghz, **k)
+        fastk_adjoint(freqs + freqs, elevs, w, **prof)
     with pytest.raises(ValueError):
-        fastk_adjoint(cfg.freqs_ghz, **k, wrt=("lwc",))
+        fastk_adjoint(freqs, (30.0,) * 33, w, **prof)
+    with pytest.raises(ValueError):
+        fastk_adjoint(freqs, elevs, w, **prof, wrt=("lwc",))
     # t may be a slice of a wider state, rows apart, as the retrieval's is
-    wide = torch.cat([k["t"], k["t"]], dim=1)
-    sliced = fastk_adjoint(cfg.freqs_ghz, **dict(k, t=wide[:, :20]))
-    whole = fastk_adjoint(cfg.freqs_ghz, **k)
+    wide = torch.cat([prof["t"], prof["t"]], dim=1)
+    sliced = fastk_adjoint(freqs, elevs, w, **dict(prof, t=wide[:, :20]))
     for name in whole:
         assert torch.equal(sliced[name], whole[name])
 

@@ -96,15 +96,19 @@ def _slant_geometry_lb(lev):
 
 def _fastk_adjoint(lev):
     cfg = fast.FastConfig(freqs_ghz=FREQS, elevations_deg=ELEVS)
-    profiles = {k: v.T for k, v in lev.items() if k != "n"}
-    params = fast.init_params(cfg, device="cpu")
-    k = jacobians.fast_k_inputs(params, fast.batch_arrays(profiles,
-                                                          torch.float32),
-                                ELEVS)
-    return (FREQS, *(k[n] for n in ("alpha_mid", "d_tm", "d_rm", "ds",
-                                    "dds_dnl", "dds_dk", "t", "dn_t",
-                                    "dn_rho", "r0cos"))), \
-        fastk.fastk_adjoint_reference
+    profiles = fast.batch_arrays({k: v.T for k, v in lev.items() if k != "n"},
+                                 torch.float32)
+    w = fast.init_params(cfg, device="cpu")["w"]
+
+    def plain(*args):
+        freqs, elevations, weights, *prof = args
+        k = jacobians.fast_k_inputs(
+            {"w": weights}, dict(zip(("z", "p", "t", "rho", "lwc"), prof)),
+            elevations)
+        return fastk.fastk_adjoint_reference(freqs, **k)
+
+    return (FREQS, ELEVS, w, *(profiles[n] for n in ("z", "p", "t", "rho",
+                                                     "lwc"))), plain
 
 
 # each wrapper the rule guards: its module and what builds its arguments
