@@ -93,9 +93,9 @@ twenty-six phases, each printing its own lines:
  18. the retrieval, `retrieve_batch` on 64 profiles x 180 levels, 3
      iterations: posterior against prior errors, the fit to the
      observations, the degrees of freedom;
- 19. CUDA-event times of fast serving, one distillation step, the fast K
-     and the retrieval, with peak device memory, and a `torch.profiler`
-     trace of fast serving, of the retrieval and of the K-matrix: device
+ 19. CUDA-event times of fast serving, one distillation step (K2 forward,
+     K2v backward), the fast K and the retrieval, with peak device memory,
+     and a `torch.profiler` trace of fast serving, of the retrieval and of the K-matrix: device
      time by kernel and the device's idle share; the fast K at B=1024: its
      kernel, from the profiles, against the plain route in float64, row by
      row, and the times (alone and in a graph) of the kernel, of the torch
@@ -103,7 +103,12 @@ twenty-six phases, each printing its own lines:
      took its ten inputs, as measured for that kernel), of the plain
      version and of the entry point through each, beside the least bytes'
      bound; then `retrieve_batch` at B=1024, 5 iterations, against the
-     plain route in float64 on the CPU;
+     plain route in float64 on the CPU; and the distillation step at the
+     benchmark cell's B=4096 (`distill_phase`): the kernel path (K2, its
+     backward K2v) beside the plain path, launches, times, peak memory, the
+     loss and gradient against the cell's float64 reference within the
+     cell's limits, and K2v alone against its plain version in float64 and
+     in a graph against its bound;
  20. the campaign forward stage, `pipeline.forward_stage`: (a) a synthetic
      campaign (3 sondes, one instrument's L1/L2 files) through
      `preprocess_files`, a NetCDF round trip, `distill_on_dataset` and the
@@ -541,7 +546,7 @@ def forward_stage_phase(dev, fb_rate, counted):
             "forward_lb": (len(STAGE_MODELS) + 1) * chunks,
             "absorption_tangents_lb": chunks, "kmatrix_assembled_lb": chunks,
             "kmatrix_assembled_rho_lwc_lb": chunks, "absorption_spectral": 0,
-            "downwelling_lb": 0, "chain": 0}
+            "downwelling_lb": 0, "chain": 0, "forward_lb_vjp": 0}
     print(f"phase 20: launches during forward_stage ({n} times x 2 crops, "
           f"batch_size=256: {chunks} chunks, {STAGE_MODELS}, fast, K): "
           f"{launches}; K1 during distill_on_dataset {fit_k1}")
@@ -1627,7 +1632,12 @@ def bench_phase(dev, counted, smi):
         "forward_lb": (calls("headline") + calls("forward_256") + 1
                        + calls("serving") + 1
                        + calls("retrieval") * (n_iter + 1) + stage_calls
-                       + calls("stage_device") * stage_chunks),
+                       + calls("stage_device") * stage_chunks
+                       + calls("distill") + 3),
+        # the distillation: its optimizer's first step warms the graphed
+        # loss up three times, forward and backward, and captures it, which
+        # launches nothing; each step then replays one K2 and one K2v
+        "forward_lb_vjp": calls("distill") + 3,
         "absorption_tangents_lb": calls("kmatrix") + calls("kmatrix_parts"),
         "kmatrix_assembled_lb": calls("kmatrix") + calls("kmatrix_parts"),
         "kmatrix_assembled_rho_lwc_lb": calls("kmatrix"),
@@ -1987,6 +1997,127 @@ def mp3000a_phase(dev, smi, ptxas, peaks) -> dict:
     return launched
 
 
+def distill_phase(dev, smi, params, teacher_cfg, peaks):
+    """Phase 19's distillation at the benchmark cell's minibatch
+    (`hatpro_distill_b4096`: B=4096 x 180 levels, 10 elevations, 14
+    channels): `fast.train_step` on the kernel path (K2 forward, K2v
+    backward, replayed as CUDA graphs after the first step) beside the
+    plain path (autograd of the plain RTE), each with its first step's
+    launches of K2 and K2v and those of its later steps, its time, its
+    peak memory above the live tensors, and one step checked as the cell
+    checks it (`mwrbench/drivers/distill.py::step_numbers`: the loss, the
+    gradient against the float64 transposed Jacobian applied to the step's
+    own cotangent, the weights against Adam's step replayed in float64),
+    beside the cell's limits; then K2v alone against its
+    plain version in float64 on 256 profiles, and in a CUDA graph against
+    its bound (`mwrbench/rooflines/distill.py`)."""
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.models import fast, lbl
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (geometry,
+                                                                   thermo)
+    from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
+        forward_lb, forward_lb_vjp, forward_lb_vjp_reference)
+    from mwrbench import manifest
+    from mwrbench.drivers import distill as distill_driver
+    from mwrbench.rooflines import distill as distill_counts
+
+    limits = manifest.read_json(
+        manifest.workload_path("hatpro_distill_b4096"))["limits"]
+    bd = 4096
+    prof = lbl.demo_batch(bd, L, seed=27, device=dev)
+    targets = lbl.forward_batch(prof, teacher_cfg)["tb"]
+    host = {k: v.cpu().numpy() for k, v in prof.items()}
+    cfg = fast.FastConfig()
+    rows = {}
+    for what, c in (("kernels", cfg),
+                    ("plain", dataclasses.replace(cfg, use_kernels=False))):
+        sp = {"w": params["w"].clone()}
+        opt = fast.make_optimizer(sp)
+        before = (forward_lb.launches, forward_lb_vjp.launches)
+        # the first step's peak: on the kernel path its warm-up and the
+        # graphs' memory, which the later steps keep
+        peak = peak_mib(lambda: fast.train_step(sp, opt, prof, targets, c))
+        launched = (forward_lb.launches - before[0],
+                    forward_lb_vjp.launches - before[1])
+        before = (forward_lb.launches, forward_lb_vjp.launches)
+        ms = timed_ms(lambda: fast.train_step(sp, opt, prof, targets, c),
+                      repeats=10, warmup=2)
+        later = (forward_lb.launches - before[0],
+                 forward_lb_vjp.launches - before[1])
+        w = sp["w"]
+        state = opt.state[w]
+        out = {"before": torch.stack([w.detach(), state["exp_avg"],
+                                      state["exp_avg_sq"]]).cpu(),
+               "t0": int(state["step"])}
+        out["loss"] = fast.train_step(sp, opt, prof, targets, c).cpu()
+        out.update(grad=w.grad.cpu(), w1=w.detach().cpu())
+        cot = distill_driver.program_cotangent(
+            c, out["before"][0], host, targets.cpu().numpy(), dev)
+        nums = distill_driver.step_numbers(
+            out, host, targets.cpu().numpy(), cot, cfg.freqs_ghz,
+            cfg.elevations_deg, opt.defaults["lr"], dev)
+        rows[what] = (ms, peak)
+        print(f"phase 19: distillation step B={bd} x {L} levels, {what}: "
+              f"{ms:.4f} ms = {bd / (ms * 1e-3):.6g} profiles/s ({smi}); "
+              f"first step's peak {peak:.1f} MiB above the live tensors; "
+              f"launches of K2, K2v in the first step {launched}, in the "
+              f"12 steps after it {later}; step {out['t0'] + 1} checked as "
+              f"the cell checks it: {nums} (the cell's limits {limits})")
+        # the kernels' first step warms the pipeline up three times and
+        # captures it (`fast._graphed_loss`), then replays it, as every
+        # later step does
+        check(launched == ((4, 4) if what == "kernels" else (0, 0)),
+              f"distillation step {what}: launches {launched}")
+        check(later == ((12, 12) if what == "kernels" else (0, 0)),
+              f"distillation steps {what}: launches {later}")
+        check(all(nums[k] <= limits[k] for k in limits),
+              f"distillation step {what}: {nums}")
+    print(f"phase 19: distillation step B={bd}: kernels "
+          f"{rows['kernels'][0]:.4f} ms against plain {rows['plain'][0]:.4f} "
+          f"ms ({rows['plain'][0] / rows['kernels'][0]:.2f} x); peak "
+          f"{rows['kernels'][1]:.1f} against {rows['plain'][1]:.1f} MiB")
+    check(rows["kernels"][1] < rows["plain"][1],
+          f"kernel step's peak {rows['kernels'][1]} MiB")
+
+    # K2v alone: against its plain version in float64 on 256 profiles,
+    # then at the minibatch in a graph against its bound
+    lev = level_major(prof)
+    n = geometry.refractive_index(lev["p"], lev["t"],
+                                  thermo.rho_to_e(lev["rho"], lev["t"]))
+    alpha = fast.serving_extinction(params, lev["p"], lev["t"], lev["rho"],
+                                    lev["lwc"])
+    cot = torch.randn(len(cfg.elevations_deg), len(cfg.freqs_ghz), bd,
+                      generator=torch.Generator().manual_seed(19)).to(dev)
+    args = (cfg.freqs_ghz, cfg.elevations_deg, alpha, lev["z"], n, lev["t"],
+            cot)
+    few = [a[..., :256].contiguous() if torch.is_tensor(a) else a
+           for a in args]
+    got = forward_lb_vjp(*few)
+    want = forward_lb_vjp_reference(*(a.double() if torch.is_tensor(a)
+                                      else a for a in few))
+    k2v_err = float(((got.double() - want).abs().amax(1)
+                     / want.abs().amax(1)).max())
+    k2v_ms = timed_ms(lambda: forward_lb_vjp(*args))
+    k2v_graph = graph_ms(lambda: forward_lb_vjp(*args))
+    k2v_plain_ms = timed_ms(lambda: forward_lb_vjp_reference(*args),
+                            repeats=5, warmup=1)
+    need = distill_counts.k2v_roofline(bd, L, len(cfg.freqs_ghz),
+                                       len(cfg.elevations_deg))
+    coded = distill_counts.k2v_roofline(bd, L, len(cfg.freqs_ghz),
+                                        len(cfg.elevations_deg),
+                                        as_coded=True)
+    b_pub, b_meas = need.time_bound_s() * 1e3, need.time_bound_s(peaks) * 1e3
+    print(f"phase 19: K2v B={bd} E={len(cfg.elevations_deg)} "
+          f"C={len(cfg.freqs_ghz)} L={L}: worst (channel, profile) column's "
+          f"max|dL/dalpha - plain float64| / its max, 256 profiles, "
+          f"{k2v_err:.3e} (bound 1e-3); {k2v_ms:.4f} ms, in a graph "
+          f"{k2v_graph:.4f} ms, the plain version {k2v_plain_ms:.4f} ms; bound {b_pub:.4f} ms by {need.bound_by()} "
+          f"(share {b_pub / k2v_graph:.3f}), at the measured rates "
+          f"{b_meas:.4f} ms (share {b_meas / k2v_graph:.3f}); as coded "
+          f"{coded.time_bound_s() * 1e3:.4f} ms by {coded.bound_by()}")
+    check(k2v_err <= 1e-3, f"K2v error {k2v_err}")
+    check(0.0 < b_pub / k2v_graph <= 1.0, f"K2v share {b_pub / k2v_graph}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2025,7 +2156,8 @@ def main() -> int:
         n2_absorption)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.rte import (
         downwelling_lb, downwelling_lb_reference, forward_lb,
-        forward_lb_body, forward_lb_reference, staged_resident_warps)
+        forward_lb_body, forward_lb_reference, forward_lb_vjp,
+        forward_lb_vjp_reference, staged_resident_warps)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
         spectral as k6)
     from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda.spectral import (  # noqa: E501
@@ -2058,7 +2190,8 @@ def main() -> int:
     for src, name, report in ptxas_report(
             lib_path.with_suffix(".log").read_text()):
         print(f"phase 0: ptxas: {src} {name}: {report}")
-        if src in ("adjoint.cu", "absorption_tangents.cu", "fastk.cu"):
+        if src in ("adjoint.cu", "absorption_tangents.cu", "fastk.cu",
+                   "rte_vjp.cu"):
             check(not re.search(r"[1-9]\d* bytes spill", report),
                   f"{src} {name} spills: {report}")
     for what, warps, least in (
@@ -3202,13 +3335,15 @@ def main() -> int:
                                                  dtargets, fcfg))
     with torch.no_grad():
         loss1 = float(fast.distill_loss(dparams, dprof, dtargets, fcfg))
-    print(f"phase 19: distillation step B=512 (plain path, autograd, Adam): "
+    print(f"phase 19: distillation step B=512 (K2 forward, K2v backward, "
+          f"autograd, Adam): "
           f"{step_ms:.4f} ms, peak {step_peak:.1f} MiB above the live "
           f"tensors; loss at the closed-form fit {loss0:.6f} K^2 (the first "
           f"step returned {first:.6f}), {loss1:.6f} K^2 after the 14 steps "
           f"taken here")
     check(np.isfinite(loss1) and abs(first - loss0) <= 1e-3 * loss0 + 1e-9,
           f"distillation loss {loss0} {first} {loss1}")
+    distill_phase(dev, smi, params, main_cfg, peaks)
     for what, fn, calls, ms in (
             ("fast serving", lambda: fast.fast_forward_batch(
                 params, profiles, fcfg), 10, fast_ms),
@@ -3337,6 +3472,7 @@ def main() -> int:
     # ---- phase 20: the campaign forward stage -----------------------------
     counted = {
         "absorption_lb": absorption_lb, "forward_lb": forward_lb,
+        "forward_lb_vjp": forward_lb_vjp,
         "absorption_tangents_lb": absorption_tangents_lb,
         "kmatrix_assembled_lb": kmatrix_assembled_lb,
         "kmatrix_assembled_rho_lwc_lb": kmatrix_assembled_rho_lwc_lb,

@@ -21,9 +21,11 @@ the six other measurements of the same run:
                      LWC) (K4, K5a, K5b), against `forward_batch` at B=256
                      timed directly; its decomposition times K4 alone and
                      K5a alone on the inputs the K-matrix makes
-  distill_step_ms    one `fast.train_step` at B=512 (the plain path,
-                     autograd, Adam); the optimizer steps the weights in
-                     place, so each timed call is the next step
+  distill_step_ms    one `fast.train_step` at B=512 (on the card K2
+                     forward and its backward K2v under autograd, replayed
+                     as CUDA graphs after the first step, then fused Adam;
+                     the plain path on the CPU); the optimizer steps the
+                     weights in place, so each timed call is the next step
   fast_serving_*     `fast.fast_forward_batch` at B=1024, tb and tau_total,
                      weights fit on the first 64 profiles (K2 on layer-mean
                      extinction)

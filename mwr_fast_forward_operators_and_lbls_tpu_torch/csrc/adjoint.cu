@@ -71,73 +71,17 @@
 
 #include <cuda_runtime.h>
 
+#include "rte_walk.cuh"
+
 namespace {
 
-// Below this opacity the emission factors take their Taylor series (see
-// `emission`).
-constexpr float kSeriesDtau = 0.5f;
-
-__device__ __forceinline__ float planck(float x, float t) {
-  return x / expm1f(x / t);
-}
-
-// d planck / dT = u^2 e^u / expm1(u)^2, u = x / T
-__device__ __forceinline__ float planck_dt(float x, float t) {
-  const float u = x / t;
-  const float em = expm1f(u);
-  return u * u * (em + 1.0f) / (em * em);
-}
-
-// d inverse_planck / dB = x^2 / (B (B + x) log1p(x / B)^2)
-__device__ __forceinline__ float inverse_planck_db(float x, float b) {
-  const float lg = log1pf(x / b);
-  return x * x / (b * (b + x) * lg * lg);
-}
-
-// Linear-in-tau emission weights of a layer of opacity d and, when asked,
-// their derivatives in d (ops/rte.py::_emission_factors and
-// _emission_factor_derivs):
-//   g_top = (1 - (1+d) e^-d) / d,  g_bot = 1 - e^-d - g_top,
-//   dg_bot/dd = g_top / d,         dg_top/dd = e^-d - g_top / d.
-// The plain version switches from a 3-term series to the closed form at
-// d = 0.03, where 1 - (1+d) e^-d keeps only ~1e-4 of its relative precision
-// in fp32.  In k_t the Planck term can nearly cancel the absorption term,
-// which turned that into 5e-3 errors against float64; so here the series of
-// g_top/d = sum_n (-1)^n (n-1)/n! d^(n-2) and of dg_top/dd =
-// sum_n (-1)^n (n-1)^2/n! d^(n-2), n = 2..11, run up to d = 0.5 (truncation
-// below 1e-9 relative), and the closed form above it loses at most ~1e-6.
-struct Emission {
-  float g_bot, g_top, dg_bot, dg_top;
-};
-
-template <bool kDerivs>
-__device__ __forceinline__ Emission emission(float d) {
-  Emission g;
-  float g_top_over_d;
-  float em = 0.0f;
-  if (d < kSeriesDtau) {
-    g_top_over_d =
-        0.5f - d * (1.0f / 3.0f - d * (1.0f / 8.0f - d * (1.0f / 30.0f
-        - d * (1.0f / 144.0f - d * (1.0f / 840.0f - d * (1.0f / 5760.0f
-        - d * (1.0f / 45360.0f - d * (1.0f / 403200.0f
-        - d * (1.0f / 3991680.0f)))))))));
-  } else {
-    em = expf(-d);
-    g_top_over_d = (1.0f - (1.0f + d) * em) / (d * d);
-  }
-  g.g_top = d * g_top_over_d;
-  g.g_bot = -expm1f(-d) - g.g_top;
-  if (kDerivs) {
-    g.dg_bot = g_top_over_d;
-    g.dg_top = d < kSeriesDtau
-        ? 0.5f - d * (2.0f / 3.0f - d * (3.0f / 8.0f - d * (2.0f / 15.0f
-          - d * (5.0f / 144.0f - d * (1.0f / 140.0f - d * (7.0f / 5760.0f
-          - d * (1.0f / 5670.0f - d * (1.0f / 44800.0f
-          - d * (1.0f / 399168.0f)))))))))
-        : em - g_top_over_d;
-  }
-  return g;
-}
+// The Planck and emission helpers (the 10-term emission series below an
+// opacity of 0.5 and why) are csrc/rte_walk.cuh's, shared with FK and K2v.
+using mwr_rte::Emission;
+using mwr_rte::emission;
+using mwr_rte::inverse_planck_db;
+using mwr_rte::planck;
+using mwr_rte::planck_dt;
 
 constexpr int kLanes = 32;
 // Warps of a block, each walking one chunk of the layers.  At the K-matrix

@@ -57,14 +57,10 @@
 //    0.05 ms more a launch at the retrieval's shape, 0.608 against 0.558 ms
 //    in a CUDA graph on an H100 SXM at 700 W).
 //  * In a warp the lanes run along the layers in chunks of 32, lane j of
-//    chunk i on layer 32 i + j.  Walk 1, up: a shuffle-up scan of the
-//    chunk's opacities plus the opacity carried from the chunks below gives
-//    T_k, parked in shared memory; each lane sums its layers' E_k T_k, one
-//    tree sum gives the radiance.  Walk 2, down from the top chunk: a
-//    shuffle-down scan of E_k T_k plus the sum carried from the chunks above
-//    gives S_k directly, a sum of positive terms from the column top (the
-//    plain version's atm - cumsum cancels there in float32), then W_k and
-//    the layer's terms.  Lane j stores level 32 i + j + 1 from its layer's
+//    chunk i on layer 32 i + j, in the two walks of csrc/rte_walk.cuh
+//    (shared with K2v): walk 1 up gives T_k and the radiance, walk 2 down
+//    S_k as a sum of positive terms from the column top, then W_k and the
+//    layer's terms.  Lane j stores level 32 i + j + 1 from its layer's
 //    top terms and the bottom terms of the layer above (lane j + 1's, or for
 //    lane 31 those carried down from the chunk above), so every store of a
 //    K row is 32 consecutive floats, and each level is written once.  Lane 0
@@ -73,7 +69,7 @@
 //    retrieval's shape 14,336 blocks of 10 warps keep the card's SMs full
 //    while the stores drain.
 //  * The emission factors take K5's 10-term series below d = 0.5
-//    (csrc/adjoint.cu::emission), not the plain float32 version's 3-term
+//    (csrc/rte_walk.cuh::emission, shared with K5 and K2v), not the plain float32 version's 3-term
 //    series below 0.03: in this walk mirrored in plain torch
 //    (ops/cuda/_mirrors.py::fastk_warp_walk), on 16 demo profiles of 180
 //    levels, the 3-term series left 2.7e-4 of a row's largest |K_t|
@@ -84,16 +80,18 @@
 
 #include <cuda_runtime.h>
 
+#include "rte_walk.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;
-constexpr unsigned kFull = 0xffffffffu;
+// the Planck and emission helpers, the chord and the walks
+using namespace mwr_rte;
+
+
 // a warp per elevation, at most 32 in a block of 1024 threads
 constexpr int kMaxWarps = 32;
 // the most shared memory a block may ask for on Hopper
 constexpr int kMaxSharedBytes = 232448;
-// Below this opacity the emission factors take their Taylor series.
-constexpr float kSeriesDtau = 0.5f;
 // the regression's monomials and hats of log p (models/fast.py)
 constexpr int kMonomials = 18;
 constexpr int kHats = 4;
@@ -107,75 +105,9 @@ struct Constants {
   double earth_radius;
 };
 
-__device__ __forceinline__ float planck(float x, float t) {
-  return x / expm1f(x / t);
-}
-
-// d planck / dT = u^2 e^u / expm1(u)^2, u = x / T
-__device__ __forceinline__ float planck_dt(float x, float t) {
-  const float u = x / t;
-  const float em = expm1f(u);
-  return u * u * (em + 1.0f) / (em * em);
-}
-
-// d inverse_planck / dB = x^2 / (B (B + x) log1p(x / B)^2)
-__device__ __forceinline__ float inverse_planck_db(float x, float b) {
-  const float lg = log1pf(x / b);
-  return x * x / (b * (b + x) * lg * lg);
-}
-
-// torch.clamp_min and torch.clamp(., 0, 1): NaN stays NaN
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return v < lo ? lo : v;
-}
+// torch.clamp(., 0, 1): NaN stays NaN
 __device__ __forceinline__ float clamp01(float v) {
   return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
-}
-
-// Linear-in-tau emission weights of a layer of opacity d and, when asked,
-// their derivatives in d, as csrc/adjoint.cu::emission forms them:
-//   g_top = (1 - (1+d) e^-d) / d,  g_bot = 1 - e^-d - g_top,
-//   dg_bot/dd = g_top / d,         dg_top/dd = e^-d - g_top / d,
-// with the series of g_top/d = sum_n (-1)^n (n-1)/n! d^(n-2) and of
-// dg_top/dd = sum_n (-1)^n (n-1)^2/n! d^(n-2), n = 2..11, below d = 0.5.
-struct Emission {
-  float g_bot, g_top, dg_bot, dg_top;
-};
-
-template <bool kDerivs>
-__device__ __forceinline__ Emission emission(float d) {
-  Emission g;
-  float g_top_over_d;
-  float em = 0.0f;
-  if (d < kSeriesDtau) {
-    g_top_over_d =
-        0.5f - d * (1.0f / 3.0f - d * (1.0f / 8.0f - d * (1.0f / 30.0f
-        - d * (1.0f / 144.0f - d * (1.0f / 840.0f - d * (1.0f / 5760.0f
-        - d * (1.0f / 45360.0f - d * (1.0f / 403200.0f
-        - d * (1.0f / 3991680.0f)))))))));
-  } else {
-    em = expf(-d);
-    g_top_over_d = (1.0f - (1.0f + d) * em) / (d * d);
-  }
-  g.g_top = d * g_top_over_d;
-  g.g_bot = -expm1f(-d) - g.g_top;
-  if (kDerivs) {
-    g.dg_bot = g_top_over_d;
-    g.dg_top = d < kSeriesDtau
-        ? 0.5f - d * (2.0f / 3.0f - d * (3.0f / 8.0f - d * (2.0f / 15.0f
-          - d * (5.0f / 144.0f - d * (1.0f / 140.0f - d * (7.0f / 5760.0f
-          - d * (1.0f / 5670.0f - d * (1.0f / 44800.0f
-          - d * (1.0f / 399168.0f)))))))))
-        : em - g_top_over_d;
-  }
-  return g;
-}
-
-// The sum of v over the warp, as lane 0 holds it after a shuffle-down tree.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kLanes / 2; off > 0; off >>= 1)
-    v += __shfl_down_sync(kFull, v, off);
-  return v;
 }
 
 // Hat j of log p (models/fast.py::_hats): knot[j] its knot, knot[4 + j] and
@@ -248,39 +180,6 @@ __device__ __forceinline__ Extinction extinction(double pm, double tm,
   const double dth_dt = -(th * th) / 300.0;
   return {a < 0.0 ? 0.0f : (float)a, live ? (float)(at * dth_dt) : 0.0f,
           live ? (float)(ar * 0.1) : 0.0f};
-}
-
-// A layer's chord ds [km] and its sensitivities d(ds)/d(n_layer) and
-// d(ds)/d(k) [km/m] for the Snell invariant k = n_0 r_0 cos(el) [m], from
-// the levels' heights z [m] and the layer's 1 / n_layer:
-// ops/geometry.py::chord_lengths and ::chord_sensitivities, with r_k,
-// r - r_k, r + r_k and their product in float64.
-struct Chord {
-  float ds, dnl, dk;
-};
-
-__device__ __forceinline__ Chord chord(float z_bot, float z_top,
-                                       double inv_n_layer, double snell,
-                                       double earth_radius) {
-  const double r_bot = earth_radius + z_bot, r_top = earth_radius + z_top;
-  const double rk = snell * inv_n_layer;
-  const float seg_top =
-      sqrtf(clamp_min((float)((r_top - rk) * (r_top + rk)), 0.0f));
-  const float seg_bot =
-      sqrtf(clamp_min((float)((r_bot - rk) * (r_bot + rk)), 0.0f));
-  const float span = (z_top - z_bot) * (float)(r_top + r_bot);
-  const float denom = seg_top + seg_bot;
-  const float denom_c = clamp_min(denom, 1.0f);
-  const float inv_top =
-      seg_top > 0.0f ? 1.0f / clamp_min(seg_top, 1e-30f) : 0.0f;
-  const float inv_bot =
-      seg_bot > 0.0f ? 1.0f / clamp_min(seg_bot, 1e-30f) : 0.0f;
-  const float rkf = (float)rk, inl = (float)inv_n_layer;
-  const float dds_drk =
-      denom > 1.0f ? span / (denom_c * denom_c) * rkf * (inv_top + inv_bot)
-                   : 0.0f;
-  return {span / denom_c * 1e-3f, dds_drk * (-rkf * inl) * 1e-3f,
-          dds_drk * inl * 1e-3f};
 }
 
 // Shared memory of a block, in bytes: n at the L levels and 1 / n_layer of
@@ -375,83 +274,38 @@ fastk_adjoint_kernel(
   const double snell = s_n[0] * r0 * cos_el[e];
   const float r0cos = (float)(r0 * cos_el[e]);
   const size_t row = (be * C + c) * L;
-  const int n_chunks = (K + kLanes - 1) / kLanes;
 
   // ---- walk 1, up: the chords, T_k and the radiance ----
-  float carry = 0.0f;     // the opacity of the chunks below
-  float radiance = 0.0f;  // this lane's layers' E_k T_k
-  for (int i = 0; i < n_chunks; ++i) {
-    const int k = i * kLanes + lane;
-    const bool on = k < K;
-    float d = 0.0f;
-    if (on) {
-      const Chord ch = chord(s_z[k], s_z[k + 1], s_inl[k], snell,
-                             cst.earth_radius);
-      c_ds[k] = ch.ds;
-      c_dnl[k] = ch.dnl;
-      c_dk[k] = ch.dk;
-      d = s_am[k] * ch.ds;
-    }
-    float incl = d;
-    for (int off = 1; off < kLanes; off <<= 1) {
-      const float y = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += y;
-    }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 0.0f;
-    if (on) {
-      const float t_below = expf(-(carry + excl));
-      tr[k] = t_below;
-      const Emission g = emission<false>(d);
-      radiance += (g.g_bot * s_b[k] + g.g_top * s_b[k + 1]) * t_below;
-    }
-    carry += __shfl_sync(kFull, incl, kLanes - 1);
-  }
-  const float atm = __shfl_sync(kFull, warp_sum(radiance), 0);
-  const float ctt = planck(x, cst.t_cosmic) * expf(-carry);
+  float tau;
+  const float atm = walk_up(K, lane, s_b, tr, tau, [&](int k) {
+    const Chord ch = chord(s_z[k], s_z[k + 1], s_inl[k], snell,
+                           cst.earth_radius);
+    c_ds[k] = ch.ds;
+    c_dnl[k] = ch.dnl;
+    c_dk[k] = ch.dk;
+    return s_am[k] * ch.ds;
+  });
+  const float ctt = planck(x, cst.t_cosmic) * expf(-tau);
   const float dtb_dr = inverse_planck_db(x, atm + ctt);
 
   // ---- walk 2, down: S_k, W_k and K level by level ----
-  float carry_s = 0.0f;  // S entering the chunk from above
   // the bottom terms of the lowest layer of the chunk above
   float up_t = 0.0f, up_r = 0.0f, up_g = 0.0f, up_p = 0.0f;
   float snell_sum = 0.0f;  // this lane's layers' g_ds dk
-  for (int i = n_chunks - 1; i >= 0; --i) {
-    const int k = i * kLanes + lane;
-    const bool on = k < K;
-    float et = 0.0f, ep = 0.0f, t_below = 0.0f, d = 0.0f;
-    Chord ch = {0.0f, 0.0f, 0.0f};
-    Emission g = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (on) {
-      ch = {c_ds[k], c_dnl[k], c_dk[k]};
-      d = s_am[k] * ch.ds;
-      t_below = tr[k];
-      g = emission<true>(d);
-      et = (g.g_bot * s_b[k] + g.g_top * s_b[k + 1]) * t_below;
-      ep = (g.dg_bot * s_b[k] + g.dg_top * s_b[k + 1]) * t_below;
-    }
-    float rincl = et;
-    for (int off = 1; off < kLanes; off <<= 1) {
-      const float y = __shfl_down_sync(kFull, rincl, off);
-      if (lane + off < kLanes) rincl += y;
-    }
-    float rexcl = __shfl_down_sync(kFull, rincl, 1);
-    if (lane == kLanes - 1) rexcl = 0.0f;
-    const float w_k = ep - (carry_s + rexcl) - ctt;
-    carry_s += __shfl_sync(kFull, rincl, 0);
-
+  walk_down(K, lane, s_b, tr, ctt, [&](int k) { return s_am[k] * c_ds[k]; },
+            [&](int k, bool on, const Down& dn) {
     // the layer's bottom terms (level k) and top terms (level k + 1)
     float own_t = 0.0f, own_r = 0.0f, own_g = 0.0f, own_p = 0.0f;
     float top_p = 0.0f;
     if (on) {
-      const float g_mid = dtb_dr * w_k * ch.ds;
-      const float g_ds = dtb_dr * w_k * s_am[k];
-      own_g = 0.5f * g_ds * ch.dnl;
-      snell_sum += g_ds * ch.dk;
+      const float g_mid = dtb_dr * dn.w_k * c_ds[k];
+      const float g_ds = dtb_dr * dn.w_k * s_am[k];
+      own_g = 0.5f * g_ds * c_dnl[k];
+      snell_sum += g_ds * c_dk[k];
       if (kT) {
         own_t = 0.5f * g_mid * s_dtm[k];
-        own_p = dtb_dr * g.g_bot * t_below;
-        top_p = dtb_dr * g.g_top * t_below;
+        own_p = dtb_dr * dn.g.g_bot * dn.t_below;
+        top_p = dtb_dr * dn.g.g_top * dn.t_below;
       }
       if (kRho) own_r = 0.5f * g_mid * s_drm[k];
     }
@@ -478,7 +332,7 @@ fastk_adjoint_kernel(
     up_t = __shfl_sync(kFull, own_t, 0);
     up_r = __shfl_sync(kFull, own_r, 0);
     up_p = __shfl_sync(kFull, own_p, 0);
-  }
+  });
   const float s = warp_sum(snell_sum);
   if (lane == 0) {
     const float geo = up_g + s * r0cos;

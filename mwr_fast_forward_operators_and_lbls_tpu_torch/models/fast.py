@@ -16,14 +16,19 @@ hat basis over log-pressure: 18 x 4 = 72 features, linear in the weights
 the features as (72, L-1, B), one matrix product landing as (C, L-1, B), the
 refractive index, then geometry and RTE on the layer-mean extinction
 (`ops/cuda/rte.py::forward_lb` with `alpha_is_mid`): kernel K2, or its plain
-version by the rule of `ops.cuda.launches`.  K2 has no backward; training
-(`distill_loss`, `train_step`, `distill`) passes use_kernels=False and
+version by the rule of `ops.cuda.launches`.  Training (`distill_loss`,
+`train_step`, `distill`) runs the same pipeline under autograd: where K2
+launches, its backward is K2v (`forward_lb_vjp`), autograd takes the
+gradient on through the clamp and the product to the weights, and the
+step's loss runs as a CUDA graph of that forward and backward
+(`_graphed_loss`); elsewhere (the CPU, float64, use_kernels=False) autograd
 differentiates the plain version.  The teacher's targets come from the LBL
 absorption (kernel K1 where it launches).
 """
 
 import contextlib
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -32,8 +37,9 @@ from torch import nn
 from ..constants import hatpro
 from ..data import preprocess
 from ..ops import geometry, rte, thermo
+from ..ops.cuda import launches
 from ..ops.cuda.absorption import absorption_lb
-from ..ops.cuda.rte import forward_lb
+from ..ops.cuda.rte import forward_lb, forward_lb_vjp
 from ..ops.spans import span
 from ..ops.tensors import (constant_vector, input_device,
                            resolve_device)  # noqa: F401 (re-exported)
@@ -44,6 +50,8 @@ N_P_BINS = 4
 N_FEATURES = N_BASE_FEATURES * N_P_BINS
 # knots of the log-pressure hat basis [hPa]: 5 .. 1013
 _LOGP_KNOTS = tuple(np.linspace(np.log(5.0), np.log(1013.0), N_P_BINS))
+# the level columns of a profile, in the order the pipeline stacks them
+_PROFILE_KEYS = ("z", "p", "t", "rho", "lwc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,7 +268,7 @@ def fast_forward_batch(params: dict, profiles: dict,
         a = batch_arrays(profiles, getattr(torch, config.dtype))
         with span("fast.layout"):
             z, p, t, rho, lwc = torch.stack(
-                [a[k] for k in ("z", "p", "t", "rho", "lwc")]).transpose(
+                [a[k] for k in _PROFILE_KEYS]).transpose(
                     1, 2).contiguous().unbind(0)                # each (L, B)
         with span("fast.extinction"):
             alpha_mid = serving_extinction(params, p, t, rho, lwc)
@@ -320,27 +328,100 @@ def fit_closed_form(profiles: dict, config: FastConfig = FastConfig(),
 def distill_loss(params: dict, profiles: dict, targets,
                  config: FastConfig = FastConfig()):
     """TB-space L2 loss against precomputed teacher TBs (B, E, C), through
-    K2's plain version (which autograd can differentiate)."""
-    plain = dataclasses.replace(config, use_kernels=False, outputs=("tb",))
-    pred = fast_forward_batch(params, profiles, plain)["tb"]
+    `fast_forward_batch` at `config.use_kernels`: K2, whose backward is K2v,
+    or its plain version."""
+    pred = fast_forward_batch(params, profiles,
+                              dataclasses.replace(config,
+                                                  outputs=("tb",)))["tb"]
     return torch.mean((pred - targets) ** 2)
 
 
+# each optimizer's graphed loss, for the configuration and shapes of its
+# last step (`_graphed_loss`); it goes with the optimizer
+_GRAPHED_LOSSES = weakref.WeakKeyDictionary()
+# the wrappers whose kernels the graphed loss holds
+_GRAPHED_WRAPPERS = (forward_lb, forward_lb_vjp)
+
+
+def _graphed_loss(optimizer, params: dict, profiles: dict, targets,
+                  config: FastConfig):
+    """`distill_loss` as `torch.cuda.make_graphed_callables` makes it: one
+    autograd node whose forward and backward each replay a CUDA graph of
+    the kernels' pipeline (features, product, K2; K2v, the product's
+    backward), taking the weights, the profiles and the targets as inputs.
+
+    The training step's forward and backward are some 100 torch calls and
+    70 launches of short kernels, which take the host longer than the card
+    takes for the work (2.7 ms at B=4096 x 180 levels on an H100); a graph
+    replay costs the host one launch.  The first step of an optimizer, and
+    the first after the configuration or the shapes change, runs the
+    pipeline eagerly three times (on copies of its arguments, with no
+    effect on the weights) and captures it; the graphs and their memory
+    (some 420 MiB at B=4096) are the optimizer's, and go with it or with
+    the next capture.  Each call adds the kernels the graphs replay to
+    their wrappers' `launches`.  The loss it gives is the graph's own
+    buffer, overwritten by the next call."""
+    dtype = getattr(torch, config.dtype)
+    a = batch_arrays(profiles, dtype)
+    args = (params["w"], *(a[k] for k in _PROFILE_KEYS),
+            torch.as_tensor(targets).to(device=a["t"].device, dtype=dtype))
+    key = (dataclasses.replace(config, outputs=("tb",)), a["t"].device,
+           tuple(tuple(x.shape) for x in args))
+    last = _GRAPHED_LOSSES.get(optimizer)
+    if last is None or last[0] != key:
+        _GRAPHED_LOSSES.pop(optimizer, None)
+
+        def loss(w, *rest):
+            return distill_loss({"w": w}, dict(zip(_PROFILE_KEYS, rest[:5])),
+                                rest[5], config)
+
+        sample = tuple(x.detach().clone().requires_grad_(x.requires_grad)
+                       for x in args)
+        before = [getattr(f, "captured", 0) for f in _GRAPHED_WRAPPERS]
+        with _true_fp32_matmul():
+            graphed = torch.cuda.make_graphed_callables(loss, sample)
+        replayed = [getattr(f, "captured", 0) - n
+                    for f, n in zip(_GRAPHED_WRAPPERS, before)]
+        last = _GRAPHED_LOSSES[optimizer] = (key, graphed, replayed)
+    _, graphed, replayed = last
+    for f, n in zip(_GRAPHED_WRAPPERS, replayed):
+        f.launches += n
+    return graphed(*args)
+
+
 def make_optimizer(params: dict, lr: float = 1e-4) -> torch.optim.Optimizer:
-    """Adam over the weights, which become leaves that require grad."""
+    """Adam over the weights, which become leaves that require grad.  On
+    the card the update is torch's fused kernel, one launch a step where
+    the multi-tensor path takes some ten and their host time."""
     params["w"].requires_grad_(True)
-    return torch.optim.Adam([params["w"]], lr=lr)
+    return torch.optim.Adam([params["w"]], lr=lr,
+                            fused=True if params["w"].is_cuda else None)
 
 
 def train_step(params: dict, optimizer, profiles: dict, targets,
                config: FastConfig = FastConfig()):
     """One distillation step: updates `params["w"]` in place through
-    `optimizer` and returns the loss before the update."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = distill_loss(params, profiles, targets, config)
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
+    `optimizer` and returns the loss before the update.  The backward's
+    products, like the forward's, run in full float32, never TF32.  Where
+    the kernels launch (`ops.cuda.launches`), the loss is `_graphed_loss`:
+    the forward and backward replay CUDA graphs, and the gradient the
+    backward leaves in the graph's buffer is copied to a `.grad` of the
+    caller's, as autograd leaves it on every other path."""
+    with span("distill.train_step"):
+        optimizer.zero_grad(set_to_none=True)
+        w = params["w"]
+        with span("distill.loss"):
+            graphed = launches(w, config.use_kernels)
+            loss = (_graphed_loss(optimizer, params, profiles, targets,
+                                  config) if graphed
+                    else distill_loss(params, profiles, targets, config))
+        with span("distill.backward"), _true_fp32_matmul():
+            loss.backward()
+            if graphed and w.grad is not None:
+                w.grad = w.grad.clone()
+        with span("distill.optimizer"):
+            optimizer.step()
+        return loss.detach().clone() if graphed else loss.detach()
 
 
 def distill(profiles: dict, config: FastConfig = FastConfig(),

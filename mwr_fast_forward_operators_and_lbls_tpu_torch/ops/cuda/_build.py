@@ -44,6 +44,9 @@ SIGNATURES = {
     "mwr_forward_lb": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P] * 5,
     # alpha, E, F, L, B
     "mwr_forward_lb_copy_bytes": [_P] + [_I] * 4,
+    # cos_el64, freqs, alpha, z, n, t, g_tb, its three strides, E, C, L, B,
+    # hk_ghz, t_cosmic, earth_radius, d_alpha, stream
+    "mwr_forward_lb_vjp": [_P] * 7 + [_I] * 7 + [_F] * 2 + [_D, _P, _P],
     # freqs, alpha, ds, t, E, F, L, B, alpha_is_mid, hk_ghz, t_cosmic, tb,
     # tau, tmr, trans, stream
     "mwr_downwelling_lb": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,

@@ -761,21 +761,68 @@ def fastk_preamble(w, z, p, t, rho, lwc, elevations):
                 r0cos=(r0 * cos_el).to(dtype))
 
 
-def fastk_warp_walk(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
-                    dn_t, dn_rho, r0cos, wrt=("t", "rho")):
-    """The fast-K kernel's walk (`csrc/fastk.cu`) in plain torch, for every
-    (profile, elevation, channel) column at once: a warp of 32 lanes walks
-    the layers in chunks of 32, lane j of chunk i on layer 32 i + j.
+def _column_walks(x, d, b_lev, b_up, live):
+    """The two walks of `csrc/rte_walk.cuh` over every column at once, the
+    layers on the last axis padded to whole chunks of 32 lanes: x = hf/k of
+    the columns' channels, d the layers' opacities, b_lev and b_up the
+    Planck radiance at each layer's bottom and top, live 1 on a layer and
+    0 past the last.
 
     1. Up: a shuffle-up scan of the layers' opacities, with the opacity of
        the chunks below carried in, gives T_k below each layer; the lanes
        sum their layers' share E_k T_k of the radiance.
     2. Down, from the top chunk: a shuffle-down scan of E_k T_k, with the
        sum of the chunks above carried in, gives S_k = sum_{j>k} E_j T_j
-       directly, W_k and the layer's terms.  Lane j stores level k + 1 from
-       its layer's top terms and the bottom terms of layer k + 1 (lane
-       j + 1's, or for lane 31 those of the chunk above, carried down).
-       Level 0 takes the bottom terms of layer 0 and the rank-one sum.
+       directly, then W_k = E'_k T_k - S_k - ctt.
+
+    Returns g_bot, g_top (`k5_emission`'s), T_k, dtb/dR (with a trailing
+    axis of 1) and W_k."""
+    n_chunks = d.shape[-1] // 32
+    g_bot, g_top, dg_bot, dg_top = k5_emission(d)
+    zero = torch.zeros_like(d[..., 0])
+    trans, atm_lanes, carry = [], torch.zeros_like(d[..., :32]), zero
+    for i in range(n_chunks):
+        sl = slice(32 * i, 32 * i + 32)
+        incl = _warp_scan_up(d[..., sl])
+        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
+                         -1)
+        trans.append(torch.exp(-(carry[..., None] + excl)) * live[..., sl])
+        atm_lanes = atm_lanes + (g_bot[..., sl] * b_lev[..., sl]
+                                 + g_top[..., sl] * b_up[..., sl]) * trans[i]
+        carry = carry + incl[..., 31]
+    trans = torch.cat(trans, -1)
+    atm = _warp_sum(atm_lanes)
+    ctt = (x / torch.expm1(x / torch.as_tensor(phys.T_COSMIC,
+                                               dtype=d.dtype)))[..., 0] \
+        * torch.exp(-carry)
+    b = atm + ctt
+    lg = torch.log1p(x[..., 0] / b)
+    dtb_dr = (x[..., 0] * x[..., 0] / (b * (b + x[..., 0]) * lg * lg))[...,
+                                                                       None]
+    et = (g_bot * b_lev + g_top * b_up) * trans
+    e_prime = (dg_bot * b_lev + dg_top * b_up) * trans
+    w, carry_s = [None] * n_chunks, zero
+    for i in range(n_chunks - 1, -1, -1):
+        sl = slice(32 * i, 32 * i + 32)
+        rincl = _warp_scan_down(et[..., sl])
+        rexcl = torch.cat([rincl[..., 1:], torch.zeros_like(rincl[..., :1])],
+                          -1)
+        w[i] = e_prime[..., sl] - (carry_s[..., None] + rexcl) \
+            - ctt[..., None]
+        carry_s = carry_s + rincl[..., 0]
+    return g_bot, g_top, trans, dtb_dr, torch.cat(w, -1)
+
+
+def fastk_warp_walk(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
+                    dn_t, dn_rho, r0cos, wrt=("t", "rho")):
+    """The fast-K kernel's walk (`csrc/fastk.cu`) in plain torch, for every
+    (profile, elevation, channel) column at once: a warp of 32 lanes walks
+    the layers in chunks of 32, lane j of chunk i on layer 32 i + j, as
+    `_column_walks`; then, chunk by chunk down, the layer's terms: lane j
+    stores level k + 1 from its layer's top terms and the bottom terms of
+    layer k + 1 (lane j + 1's, or for lane 31 those of the chunk above,
+    carried down).  Level 0 takes the bottom terms of layer 0 and the
+    rank-one sum.
 
     Shapes and outputs as `fastk.fastk_adjoint`; the emission factors are
     `k5_emission`'s.  Only the order of the sums differs from the plain
@@ -809,44 +856,16 @@ def fastk_warp_walk(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
     dsl = lanes(ds[:, :, None])                           # (B, E, 1, .)
     live = lanes(torch.ones_like(ds[:, :1, None]))        # 1 on a layer
     d = amid * dsl
-    g_bot, g_top, dg_bot, dg_top = k5_emission(d)
+    g_bot, g_top, trans, dtb_dr, w_all = _column_walks(x, d, b_lev, b_up,
+                                                       live)
     zero = torch.zeros_like(d[..., 0])                    # (B, E, C)
-
-    # walk 1, up
-    trans, atm_lanes, carry = [], torch.zeros_like(d[..., :32]), zero
-    for i in range(n_chunks):
-        sl = slice(32 * i, 32 * i + 32)
-        incl = _warp_scan_up(d[..., sl])
-        excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]],
-                         -1)
-        trans.append(torch.exp(-(carry[..., None] + excl)) * live[..., sl])
-        atm_lanes = atm_lanes + (g_bot[..., sl] * b_lev[..., sl]
-                                 + g_top[..., sl] * b_up[..., sl]) * trans[i]
-        carry = carry + incl[..., 31]
-    trans = torch.cat(trans, -1)
-    atm = _warp_sum(atm_lanes)
-    ctt = planck(torch.as_tensor(phys.T_COSMIC, dtype=dtype))[..., 0] * \
-        torch.exp(-carry)
-    b = atm + ctt
-    lg = torch.log1p(x[..., 0] / b)
-    dtb_dr = (x[..., 0] * x[..., 0] / (b * (b + x[..., 0]) * lg * lg))[...,
-                                                                       None]
-
-    # the layers' terms need S_k, so walk 2 forms them chunk by chunk, down
-    et = (g_bot * b_lev + g_top * b_up) * trans
-    e_prime = (dg_bot * b_lev + dg_top * b_up) * trans
     dn = {"t": dn_t, "rho": dn_rho}
     outs = {name: [None] * n_chunks for name in wrt}
-    carry_s = zero
     carries = {key: zero for key in ("t", "rho", "geo", "planck")}
     snell = torch.zeros_like(d[..., :32])
     for i in range(n_chunks - 1, -1, -1):
         sl = slice(32 * i, 32 * i + 32)
-        rincl = _warp_scan_down(et[..., sl])
-        rexcl = torch.cat([rincl[..., 1:], torch.zeros_like(rincl[..., :1])],
-                          -1)
-        w = e_prime[..., sl] - (carry_s[..., None] + rexcl) - ctt[..., None]
-        carry_s = carry_s + rincl[..., 0]
+        w = w_all[..., sl]
         g_mid = dtb_dr * w * dsl[..., sl]
         g_ds = dtb_dr * w * amid[..., sl]
         # the layer's bottom (level k) and top (level k + 1) terms, zero
@@ -885,3 +904,47 @@ def fastk_warp_walk(freqs, alpha_mid, d_tm, d_rm, ds, dds_dnl, dds_dk, t,
                                   torch.cat(outs[name], -1)[..., :n_lay]],
                                  -1)
     return result
+
+
+def rte_vjp_walk(freqs, elevations, alpha_mid, z, n, t, g_tb):
+    """K2v (`csrc/rte_vjp.cu`) in plain torch: each (profile, elevation)
+    warp forms its chords as FK does (the Snell invariant and r - r_k,
+    r + r_k in float64, the square roots in the inputs' dtype), walks its
+    columns up (T_k, the radiance) and down (S_k by a shuffle-down scan from
+    the top, W_k) in chunks of 32 layers, and the terms cot dtb/dR W_k ds_k
+    are summed over the elevations.  Shapes as `rte.forward_lb_vjp`; the
+    emission factors are `k5_emission`'s.  Only the order of the sums
+    differs from the kernel."""
+    dtype, f64 = t.dtype, torch.float64
+    n_lay = t.shape[0] - 1
+    n_chunks = -(-n_lay // 32)
+    pad = 32 * n_chunks - n_lay
+    cos_el = torch.cos(torch.deg2rad(torch.as_tensor(elevations, dtype=f64)))
+    zb, nb = z.T.to(f64), n.T.to(f64)                        # (B, L)
+    r_lev = phys.EARTH_RADIUS + zb
+    snell = nb[:, :1] * r_lev[:, :1] * cos_el                # (B, E)
+    rk = snell[:, :, None] / (0.5 * (nb[:, :-1] + nb[:, 1:]))[:, None]
+    r_bot, r_top = r_lev[:, None, :-1], r_lev[:, None, 1:]
+    seg_top, seg_bot = (torch.sqrt(torch.clamp_min(
+        ((rr - rk) * (rr + rk)).to(dtype), 0.0)) for rr in (r_top, r_bot))
+    span = (z.T[:, 1:] - z.T[:, :-1])[:, None] * (r_top + r_bot).to(dtype)
+    ds = span / torch.clamp_min(seg_top + seg_bot, 1.0) * 1e-3  # (B, E, K)
+
+    x = phys.HK_GHZ * torch.as_tensor(freqs, dtype=dtype)[None, None, :, None]
+
+    def lanes(a):
+        return torch.nn.functional.pad(a, (0, pad))
+
+    tl = t.T[:, None, None, :]                               # (B, 1, 1, L)
+    b_lev, b_up = (lanes(x / torch.expm1(x / tk))
+                   for tk in (tl[..., :-1], tl[..., 1:]))
+    dsl = lanes(ds[:, :, None])                              # (B, E, 1, .)
+    d = lanes(alpha_mid.permute(2, 0, 1)[:, None]) * dsl
+    _, _, _, dtb_dr, w = _column_walks(
+        x, d, b_lev, b_up, lanes(torch.ones_like(ds[:, :1, None])))
+    terms = g_tb.permute(2, 0, 1)[..., None] * dtb_dr * w * dsl
+    g = terms[..., :n_lay]                                   # (B, E, C, K)
+    out = g[:, 0]
+    for e in range(1, g.shape[1]):
+        out = out + g[:, e]
+    return out.permute(1, 2, 0)

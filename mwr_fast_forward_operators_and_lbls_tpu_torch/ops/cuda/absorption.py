@@ -28,7 +28,7 @@ from ..absorption import liquid_absorption, total_absorption
 from ..absorption.h2o import _GL_W, _GL_X
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build, launches
+from . import _build, count_launch, launches
 
 # Scalar slots at the head of the packed table, in the order of the `Header`
 # enum in csrc/absorption.cu.
@@ -263,7 +263,7 @@ def absorption_lb(freqs, p, t, rho, lwc, model: str = "R24", o3=None,
         if err:
             raise RuntimeError(f"absorption kernel launch failed: CUDA "
                                f"error {err}")
-        absorption_lb.launches += 1
+        count_launch(absorption_lb)
         return out
 
 
@@ -346,8 +346,8 @@ def absorption_tangents_lb(freqs, p, t, rho, lwc, model: str = "R24",
         if err:
             raise RuntimeError(f"absorption tangent kernel launch failed: "
                                f"CUDA error {err}")
-        absorption_tangents_lb.launches += 1
-        absorption_tangents_lb.lwc_launches += with_lwc
+        if count_launch(absorption_tangents_lb):
+            absorption_tangents_lb.lwc_launches += with_lwc
         return tuple(out)
 
 

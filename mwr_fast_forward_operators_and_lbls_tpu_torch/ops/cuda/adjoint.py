@@ -14,7 +14,7 @@ from ...constants import physics as phys
 from .. import rte
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build, launches
+from . import _build, count_launch, launches
 
 # the kernel's `mode` argument (csrc/adjoint.cu::mwr_kmatrix_lb)
 _MODES = {"lwc": 0, "rho": 1, "t": 2, "rho_lwc": 3}
@@ -167,7 +167,7 @@ def kmatrix_assembled_lb(freqs, which: str, alpha, da, ds, t_k, dds_dnl=None,
     with span("cuda.kmatrix_assembled_lb"):
         (out,) = _launch(freqs, which, alpha, da, ds, t_k, dds_dnl, dds_dk,
                          dn, r0cos)
-        kmatrix_assembled_lb.launches += 1
+        count_launch(kmatrix_assembled_lb)
         return out
 
 
@@ -187,7 +187,7 @@ def kmatrix_assembled_rho_lwc_lb(freqs, alpha, da_rho, da_lwc, ds, t_k,
     with span("cuda.kmatrix_assembled_rho_lwc_lb"):
         k_rho, k_lwc = _launch(freqs, "rho_lwc", alpha, da_rho, ds, t_k,
                                dds_dnl, dds_dk, dn_rho, r0cos, da2=da_lwc)
-        kmatrix_assembled_rho_lwc_lb.launches += 1
+        count_launch(kmatrix_assembled_rho_lwc_lb)
         return k_rho, k_lwc
 
 

@@ -11,7 +11,7 @@ import struct
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 N_CHAINS = 8
 
@@ -92,7 +92,7 @@ def chain(x, op: str = "fma", k=None, threads: int = 256):
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"chain kernel launch failed: CUDA error {err}")
-    chain.launches += 1
+    count_launch(chain)
     return out
 
 

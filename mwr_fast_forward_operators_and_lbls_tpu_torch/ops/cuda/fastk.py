@@ -21,7 +21,7 @@ from ...constants import physics as phys
 from .. import geometry, rte
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build, launches
+from . import _build, count_launch, launches
 from .rte import _device_cos
 
 FASTK_WRT = ("t", "rho")
@@ -153,7 +153,7 @@ def fastk_adjoint(freqs, elevations, w, z, p, t, rho, lwc, wrt=FASTK_WRT,
         if err:
             raise RuntimeError(f"fast-K kernel launch failed: CUDA error "
                                f"{err}")
-        fastk_adjoint.launches += 1
+        count_launch(fastk_adjoint)
         return out
 
 

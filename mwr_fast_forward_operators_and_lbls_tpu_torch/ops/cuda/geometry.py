@@ -17,7 +17,7 @@ from ...constants import physics as phys
 from .. import geometry, thermo
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build, launches
+from . import _build, count_launch, launches
 from .rte import _device_cos
 
 
@@ -114,7 +114,7 @@ def slant_geometry_lb(elevations, z, p, t, rho, names=("t", "rho"),
         if err:
             raise RuntimeError(f"geometry kernel launch failed: CUDA error "
                                f"{err}")
-        slant_geometry_lb.launches += 1
+        count_launch(slant_geometry_lb)
         return dict(out, r0cos=r0cos, dn={name: dn[name] for name in names})
 
 

@@ -15,6 +15,15 @@ follows alpha's alignment (`forward_lb_body`), the numbers do not.  K3 is
 the same body on given paths, with a body of one thread per (elevation,
 frequency, profile) for the calls the staged one does not take (the
 docstring of `downwelling_lb`).  A launch that is refused raises.
+
+K2 on layer-mean extinction has a backward, K2v (`forward_lb_vjp`,
+`csrc/rte_vjp.cu`): where a kernel call of `forward_lb` is part of an
+autograd graph, it runs inside `_K2Mid`, a `torch.autograd.Function` whose
+backward turns the cotangent of tb into the gradient of alpha.  Only that
+gradient is supported: a graph that needs the gradient of tau_total, t_mr,
+trans_level, z, n or t, or of level alpha, raises in the backward rather
+than return a wrong one.  On the plain version autograd differentiates the
+torch operations themselves, as before.
 """
 
 import functools
@@ -25,7 +34,7 @@ from ...constants import physics as phys
 from .. import geometry, rte
 from ..spans import span
 from ..tensors import constant_vector
-from . import _build, launches
+from . import _build, count_launch, launches
 
 
 def _cos_elevations(elevations, dtype, device) -> torch.Tensor:
@@ -152,6 +161,20 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
     if not launches(alpha, use_kernels):
         return forward_lb_reference(freqs, elevations, alpha, z, n, t,
                                     alpha_is_mid, want_trans_level)
+    if torch.is_grad_enabled() and any(v.requires_grad
+                                       for v in (alpha, z, n, t)):
+        names = ("tb", "tau_total", "t_mr") + (
+            ("trans_level",) if want_trans_level else ())
+        return dict(zip(names, _K2Mid.apply(alpha, z, n, t, freqs,
+                                            elevations, alpha_is_mid,
+                                            want_trans_level, use_kernels)))
+    return _forward_lb_launch(freqs, elevations, alpha, z, n, t,
+                              alpha_is_mid, want_trans_level)
+
+
+def _forward_lb_launch(freqs, elevations, alpha, z, n, t, alpha_is_mid,
+                       want_trans_level):
+    """The kernel path of `forward_lb`: checks, outputs, one launch of K2."""
     with span("cuda.forward_lb"):
         dev = t.device
         f = _frequency_vector(freqs, dev)
@@ -173,11 +196,108 @@ def forward_lb(freqs, elevations, alpha, z, n, t, alpha_is_mid: bool = False,
         if err:
             forward_lb_body(alpha, n_el, alpha_is_mid)  # names a refused shape
             raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
-        forward_lb.launches += 1
+        count_launch(forward_lb)
         return out
 
 
 forward_lb.launches = 0
+
+
+class _K2Mid(torch.autograd.Function):
+    """K2 as an autograd Function: the forward launches K2 (`forward_lb`'s
+    kernel path, unchanged), the backward K2v (`forward_lb_vjp`) on the
+    cotangent of tb.  Any other gradient it would need raises.  Where the
+    rule takes the plain versions (the CPU tests), the same Function runs
+    `forward_lb_reference` and `forward_lb_vjp_reference`."""
+
+    @staticmethod
+    def forward(ctx, alpha, z, n, t, freqs, elevations, alpha_is_mid,
+                want_trans_level, use_kernels):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(alpha, z, n, t)
+        ctx.freqs, ctx.elevations = freqs, elevations
+        ctx.alpha_is_mid, ctx.use_kernels = alpha_is_mid, use_kernels
+        run = (_forward_lb_launch if launches(alpha, use_kernels)
+               else forward_lb_reference)
+        return tuple(run(freqs, elevations, alpha, z, n, t, alpha_is_mid,
+                         want_trans_level).values())
+
+    @staticmethod
+    def backward(ctx, g_tb, *g_others):
+        if (any(g is not None for g in g_others)
+                or any(ctx.needs_input_grad[1:4]) or not ctx.alpha_is_mid):
+            raise NotImplementedError(
+                "the RTE kernel's backward (K2v) gives the gradient of "
+                "layer-mean extinction for the cotangent of tb only: this "
+                "graph needs the gradient of tau_total, t_mr, trans_level, "
+                "z, n, t or of level absorption; run the plain version "
+                "(use_kernels=False)")
+        if g_tb is None or not ctx.needs_input_grad[0]:
+            return (None,) * 9
+        alpha, z, n, t = ctx.saved_tensors
+        g_alpha = forward_lb_vjp(ctx.freqs, ctx.elevations, alpha, z, n, t,
+                                 g_tb, ctx.use_kernels)
+        return (g_alpha,) + (None,) * 8
+
+
+def forward_lb_vjp_reference(freqs, elevations, alpha, z, n, t, g_tb):
+    """Plain version of K2v: autograd of `forward_lb_reference` on
+    layer-mean extinction, the gradient (F, L-1, B) of alpha for the
+    cotangent g_tb (E, F, B) of tb, in the inputs' dtype."""
+    with torch.enable_grad():
+        a = alpha.detach().requires_grad_(True)
+        tb = forward_lb_reference(freqs, elevations, a, z.detach(),
+                                  n.detach(), t.detach(),
+                                  alpha_is_mid=True)["tb"]
+        (g_alpha,) = torch.autograd.grad(tb, a, g_tb)
+    return g_alpha
+
+
+def forward_lb_vjp(freqs, elevations, alpha, z, n, t, g_tb,
+                   use_kernels: bool = True):
+    """The backward of `forward_lb` on layer-mean extinction: the gradient
+    dL/dalpha (F, L-1, B) for the cotangent g_tb = dL/dtb (E, F, B), in any
+    strides, summed over the elevations.  freqs, elevations, alpha
+    (F, L-1, B), z, n and t (L, B) as `forward_lb` takes them with
+    `alpha_is_mid`.
+
+    K2v or the plain version (`forward_lb_vjp_reference`) by
+    `launches(alpha, use_kernels)`.  K2v walks each column's adjoint as FK
+    does (`csrc/rte_walk.cuh`), with its own float64 chords and K5's
+    10-term emission series, so it is held to the plain version in float64
+    rather than in float32."""
+    if not launches(alpha, use_kernels):
+        return forward_lb_vjp_reference(freqs, elevations, alpha, z, n, t,
+                                        g_tb)
+    with span("cuda.forward_lb_vjp"):
+        dev = t.device
+        f = _frequency_vector(freqs, dev)
+        _check_inputs(f.numel(), alpha, dict(t=t, z=z, n=n), True)
+        lev, batch = t.shape
+        n_el, n_ch = len(elevations), f.numel()
+        want = (n_el, n_ch, batch)
+        if (tuple(g_tb.shape) != want or g_tb.dtype != torch.float32
+                or g_tb.device != dev):
+            raise ValueError(f"g_tb: expected float32 {want} on {dev}, got "
+                             f"{g_tb.dtype} {tuple(g_tb.shape)} on "
+                             f"{g_tb.device}")
+        cos_el64 = _device_cos(tuple(float(v) for v in elevations), dev)
+        out = torch.empty_like(alpha)
+        with torch.cuda.device(dev):
+            err = _build.library().mwr_forward_lb_vjp(
+                cos_el64.data_ptr(), f.data_ptr(), alpha.data_ptr(),
+                z.data_ptr(), n.data_ptr(), t.data_ptr(), g_tb.data_ptr(),
+                *g_tb.stride(), n_el, n_ch, lev, batch, phys.HK_GHZ,
+                phys.T_COSMIC, phys.EARTH_RADIUS, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"RTE backward kernel launch failed: CUDA "
+                               f"error {err}")
+        count_launch(forward_lb_vjp)
+        return out
+
+
+forward_lb_vjp.launches = 0
 
 
 def downwelling_lb_reference(freqs, alpha, ds_km, t,
@@ -230,7 +350,7 @@ def downwelling_lb(freqs, alpha, ds_km, t, alpha_is_mid: bool = False,
                 torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"RTE kernel launch failed: CUDA error {err}")
-        downwelling_lb.launches += 1
+        count_launch(downwelling_lb)
         return out
 
 

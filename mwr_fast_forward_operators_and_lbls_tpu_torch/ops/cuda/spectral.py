@@ -25,7 +25,7 @@ from ...constants import H2O_MODELS, O2_MODELS, o3_lines
 from ..absorption import (h2o_absorption, liquid_absorption, n2_absorption,
                           o2_absorption, o3_absorption, total_absorption)
 from ..spans import span
-from . import _build, launches
+from . import _build, count_launch, launches
 from .absorption import (H2O_FIELDS, HEADER_FIELDS, O2_FIELDS, O3_FIELDS,
                          check_points, line_tables, pack_tables, table_layout)
 
@@ -273,7 +273,7 @@ def absorption_spectral(f_ghz, p, t, rho, lwc, model: str = "R24",
                                              f_range)
     with span("cuda.absorption_spectral"):
         out = _launch(f_ghz, p, t, rho, lwc, model, f_range)[1]
-        absorption_spectral.launches += 1
+        count_launch(absorption_spectral)
         return out
 
 

@@ -22,9 +22,14 @@ transform of a plain path runs inside one.
   fastk.*     models.jacobians.kmatrix_fast_adjoint_batch (its closed-form K)
   oem.*       models.retrieval.retrieve_batch (the 1D-Var retrieval; its
               oem.forward and oem.jacobian hold the fast.* and fastk.* spans)
+  distill.*   models.fast.train_step (the distillation's training step; on
+              the card its loss and backward replay CUDA graphs, so the
+              fast.* and cuda.* spans under distill.loss and
+              distill.backward appear in an optimizer's first step only)
   spectral.*  models.spectral.forward_spectral and srf_convolve
   cuda.*      the kernel wrappers of ops/cuda (K1-K6, the K-matrix's
-              slant geometry and the fast K), on the card only
+              slant geometry, the fast K and K2's backward), on the card
+              only
   stage.*     pipeline.forward.forward_stage
 """
 
@@ -43,12 +48,14 @@ SPAN_NAMES = frozenset({
     "fastk.rte_adjoint", "fastk.assembly",
     "oem.retrieve_batch", "oem.prior", "oem.forward", "oem.jacobian",
     "oem.accept", "oem.solve", "oem.dofs",
+    "distill.train_step", "distill.loss", "distill.backward",
+    "distill.optimizer",
     "spectral.forward_spectral", "spectral.layout",
     "spectral.slant_geometry", "spectral.chunk", "spectral.srf_convolve",
     "cuda.absorption_lb", "cuda.forward_lb", "cuda.downwelling_lb",
     "cuda.absorption_tangents_lb", "cuda.kmatrix_assembled_lb",
     "cuda.kmatrix_assembled_rho_lwc_lb", "cuda.absorption_spectral",
-    "cuda.slant_geometry_lb", "cuda.fastk_adjoint",
+    "cuda.slant_geometry_lb", "cuda.fastk_adjoint", "cuda.forward_lb_vjp",
     "stage.forward_stage", "stage.screen", "stage.upload", "stage.enqueue",
     "stage.mask", "stage.pull",
 })

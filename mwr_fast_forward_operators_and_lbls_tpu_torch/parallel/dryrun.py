@@ -9,7 +9,8 @@ On an n-entry mesh (spectral=2 when n is even) it runs:
       `spectral`: each (data, spectral) entry takes the loss of its
       profiles and channels and its gradient, the gradients are summed onto
       the lead device (the all-reduce) and one Adam step follows; held to
-      `fast.train_step` on the whole batch;
+      `fast.train_step` on the whole batch, on the same path (on the card
+      K2 and K2v, on the CPU the plain version);
   (b) the spectral split, `forward_spectral_sharded` plus `srf_convolve`,
       against the dense `forward_spectral`;
   (c) the batch split, `forward_sharded`, at 24 and 180 levels against the
@@ -58,10 +59,12 @@ def _train_step_sharded(params: dict, optimizer, placed: list, targets,
 
     placed: `shard_profiles` of a batch whose size the data axis divides;
     targets: the teacher's tb (B, E, C) gathered on the lead device.  Each
-    entry differentiates the plain path on its profiles and channels (the
-    channels' extinction and RTE are independent), the gradients are summed
-    onto the lead device (and over processes), and `optimizer` takes one
-    step on `params["w"]`.  Returns the loss before the step.
+    entry differentiates its profiles and channels (the channels'
+    extinction and RTE are independent) on the path `fast.train_step`
+    takes at `config.use_kernels` (on the card K2 and its backward K2v),
+    the backward's products in full float32 as there, the gradients are
+    summed onto the lead device (and over processes), and `optimizer` takes
+    one step on `params["w"]`.  Returns the loss before the step.
     """
     w = params["w"]
     cols = torch.arange(w.shape[1]).chunk(mesh.shape[mesh_mod.SPECTRAL_AXIS])
@@ -73,13 +76,14 @@ def _train_step_sharded(params: dict, optimizer, placed: list, targets,
         for c, dev in zip(cols, row):
             sub = dataclasses.replace(
                 config, freqs_ghz=tuple(config.freqs_ghz[j] for j in c),
-                use_kernels=False, outputs=("tb",))
+                outputs=("tb",))
             w_part = w.detach()[:, c].to(dev).requires_grad_(True)
             pred = fast.fast_forward_batch(
                 {"w": w_part}, {k: v.to(dev) for k, v in shard.items()},
                 sub)["tb"]
             part = torch.sum((pred - tgt[:, :, c].to(dev)) ** 2) / count
-            part.backward()
+            with fast._true_fp32_matmul():
+                part.backward()
             grad[:, c] += w_part.grad.to(w.device)
             loss += part.detach().to(w.device)
     if mesh.processes > 1:

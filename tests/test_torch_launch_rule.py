@@ -64,6 +64,15 @@ def _forward_lb(lev):
         rte.forward_lb_reference
 
 
+def _forward_lb_vjp(lev):
+    alpha = absorption.absorption_lb_reference(FREQS, *_points(lev))
+    mid = 0.5 * (alpha[:, 1:] + alpha[:, :-1])
+    g_tb = torch.linspace(-1.0, 1.0, len(ELEVS) * len(FREQS) * 2).reshape(
+        len(ELEVS), len(FREQS), 2)
+    return (FREQS, ELEVS, mid, lev["z"], lev["n"], lev["t"], g_tb), \
+        rte.forward_lb_vjp_reference
+
+
 def _downwelling_lb(lev):
     alpha, _, _, g = _k5(lev)
     return (FREQS, alpha, g["ds"], lev["t"]), rte.downwelling_lb_reference
@@ -117,6 +126,7 @@ WRAPPERS = {
     "absorption_lb": (absorption, _absorption_lb),
     "absorption_tangents_lb": (absorption, _absorption_tangents_lb),
     "forward_lb": (rte, _forward_lb),
+    "forward_lb_vjp": (rte, _forward_lb_vjp),
     "downwelling_lb": (rte, _downwelling_lb),
     "kmatrix_assembled_lb": (adjoint, _kmatrix_assembled_lb),
     "kmatrix_assembled_rho_lwc_lb": (adjoint,

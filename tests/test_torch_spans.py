@@ -4,8 +4,9 @@ On the CPU each batched entry point runs once under
 `parallel.profiling.trace` and once without a profiler: the spans nest under
 the entry's span in the order of the code, every name is in `SPAN_NAMES`,
 and the outputs are the same bits either way.  The test marked `cuda`
-checks on the card that each kernel K1-K6, the K-matrix's geometry kernel
-and the fast K's kernel, is launched inside its wrapper's `cuda.*` span.
+checks on the card that each kernel K1-K6, the K-matrix's geometry kernel,
+the fast K's kernel and K2's backward (K2v), is launched inside its
+wrapper's `cuda.*` span.
 """
 
 import contextlib
@@ -19,7 +20,9 @@ from mwr_fast_forward_operators_and_lbls_tpu_torch.data.dataset import (
     Dataset, Variable)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.models import (
     fast, jacobians, lbl, retrieval, spectral)
-from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import spans
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import spans, thermo
+from mwr_fast_forward_operators_and_lbls_tpu_torch.ops import (
+    geometry as physics_geometry)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
     absorption, adjoint, fastk, geometry, rte)
 from mwr_fast_forward_operators_and_lbls_tpu_torch.ops.cuda import (
@@ -105,6 +108,16 @@ def _retrieve():
                                     ocfg, prof["lwc"])
 
 
+def _distill():
+    """One distillation step from seeded weights towards TBs of 100 K."""
+    fcfg = fast.FastConfig(freqs_ghz=CFG.freqs_ghz,
+                           elevations_deg=CFG.elevations_deg)
+    params = fast.init_params(fcfg, device="cpu")
+    loss = fast.train_step(params, fast.make_optimizer(params), _profiles(),
+                           torch.full((3, 2, 3), 100.0), fcfg)
+    return {"loss": loss, "w": params["w"].detach()}
+
+
 def _stage():
     ds = stage.forward_stage(_dataset(), models=("R24",),
                              with_jacobians=True, batch_size=2, device="cpu")
@@ -120,6 +133,7 @@ ENTRIES = {
     "spectral": _spectrum,
     "stage": _stage,
     "retrieve": _retrieve,
+    "distill": _distill,
 }
 
 # each entry's root spans and, under each root, its child spans in order
@@ -154,17 +168,23 @@ TREES = {
                   + ["oem.solve", "oem.forward", "oem.jacobian",
                      "oem.accept"] * N_ITER
                   + ["oem.dofs"])],
+    # on the CPU autograd runs the plain version's backward: no span there
+    "distill": [("distill.train_step", ["distill.loss", "distill.backward",
+                                        "distill.optimizer"])],
 }
 
 
 def _annotations(path):
-    """(start, end, name) of every user annotation of the Chrome trace."""
+    """(start, end, name) of every user annotation of the Chrome trace but
+    those torch's optimizers record themselves ("Optimizer.step#Adam.step",
+    "Optimizer.zero_grad#...")."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     return sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
                     e["name"]) for e in events
                    if e.get("ph") == "X"
-                   and e.get("cat") == "user_annotation"),
+                   and e.get("cat") == "user_annotation"
+                   and not e["name"].startswith("Optimizer.")),
                   key=lambda s: (s[0], -s[1]))
 
 
@@ -272,7 +292,7 @@ def test_the_retrieval_nests_the_fast_operator_and_its_k(runs):
 def test_span_names_name_the_layers():
     layers = {n.split(".")[0] for n in spans.SPAN_NAMES}
     assert layers == {"lbl", "kmatrix", "spectral", "cuda", "stage", "fast",
-                      "fastk", "oem"}
+                      "fastk", "oem", "distill"}
     wrappers = {n for n in spans.SPAN_NAMES if n.startswith("cuda.")}
     assert wrappers == {f"cuda.{fn.__name__}" for fn in WRAPPERS}
 
@@ -288,6 +308,7 @@ WRAPPERS = {
     k6.absorption_spectral: ("line_state_kernel", "spectral_kernel"),
     geometry.slant_geometry_lb: ("slant_geometry_kernel",),
     fastk.fastk_adjoint: ("fastk_adjoint_kernel",),
+    rte.forward_lb_vjp: ("rte_vjp_kernel",),
 }
 
 
@@ -300,6 +321,15 @@ def test_each_kernel_is_launched_inside_its_wrapper_span(tmp_path):
     cfg = lbl.LBLConfig(outputs=("tb",))
     fcfg = fast.FastConfig(outputs=("tb",))
     params = fast.init_params(fcfg, device=dev)
+    # K2's backward on the fast operator's layer extinction; the training
+    # step itself replays it as part of a CUDA graph after its first call
+    lev = {k: v.T.contiguous() for k, v in prof.items()}
+    vjp_args = (fast.serving_extinction(params, lev["p"], lev["t"],
+                                        lev["rho"], lev["lwc"]),
+                lev["z"], physics_geometry.refractive_index(
+                    lev["p"], lev["t"], thermo.rho_to_e(lev["rho"],
+                                                        lev["t"])),
+                lev["t"], torch.ones((10, 14, 8), device=dev))
 
     def calls():
         lbl.forward_batch(prof, cfg)
@@ -307,6 +337,7 @@ def test_each_kernel_is_launched_inside_its_wrapper_span(tmp_path):
         spectral.forward_spectral(prof, torch.from_numpy(GRID).to(dev),
                                   (90.0,), "R24", freq_chunk=CHUNK)
         jacobians.kmatrix_fast_adjoint_batch(params, prof, fcfg)
+        rte.forward_lb_vjp(fcfg.freqs_ghz, fcfg.elevations_deg, *vjp_args)
 
     calls()                                     # builds and warms up
     torch.cuda.synchronize()
